@@ -1,0 +1,218 @@
+"""Persistent plan/executor cache: ``MPI_*_init`` semantics across solves.
+
+MPI's persistent neighborhood collectives amortize the expensive init
+(plan construction, leader election, dedup) over the iterations of *one*
+solve.  This cache extends the amortization across solves and across
+operators that share a communication pattern: repeated AMG cycles on the
+same matrix, a rebuilt hierarchy on an unchanged grid, or several operators
+whose halos coincide all hit the same entry.
+
+Entries are keyed on a *pattern fingerprint* (a content hash of the
+pattern's ownership/needs arrays) plus topology, strategy, value width and
+machine params, so two equal patterns hit regardless of object identity.
+Bound executors (which carry the plan's index arrays on a device) are
+cached one level down, keyed additionally on the device.
+"""
+from __future__ import annotations
+
+import hashlib
+from dataclasses import dataclass, field
+from typing import Any, Callable, Dict, Tuple
+
+import numpy as np
+
+from .. import resolve_device
+from .costmodel import LASSEN, MachineParams
+from .neighborhood import NeighborAlltoallV
+from .plan import CommPattern, Topology
+
+
+def _hash_array(h, name: str, arr: np.ndarray) -> None:
+    """Feed one array to the hash with an unambiguous framing.
+
+    The field name, dtype, rank and shape are encoded ahead of the raw
+    bytes, so two patterns whose arrays happen to serialize to the same
+    byte stream cannot collide, and the digest is a pure function of
+    content, identical across processes and interpreter runs.
+    """
+    a = np.ascontiguousarray(arr)
+    h.update(name.encode())
+    h.update(b"\x00")
+    h.update(str(a.dtype).encode())
+    h.update(np.asarray([a.ndim, *a.shape], dtype=np.int64).tobytes())
+    h.update(a.tobytes())
+
+
+def pattern_fingerprint(pattern: CommPattern) -> str:
+    """Content hash of a pattern: equal content -> equal fingerprint.
+
+    Fields are hashed in a fixed order, each framed with its
+    name/dtype/shape (:func:`_hash_array`), and the variable-length
+    ``needs`` list is prefixed with its count.
+    """
+    h = hashlib.blake2b(digest_size=16)
+    _hash_array(h, "owner_proc", pattern.owner_proc)
+    _hash_array(h, "owner_slot", pattern.owner_slot)
+    _hash_array(h, "n_local", pattern.n_local)
+    h.update(np.int64(len(pattern.needs)).tobytes())
+    for q, need in enumerate(pattern.needs):
+        _hash_array(h, f"needs[{q}]", need)
+    return h.hexdigest()
+
+
+def plan_cache_key(
+    pattern: CommPattern,
+    topo: Topology,
+    strategy: str,
+    value_bytes: int,
+    params: MachineParams,
+) -> Tuple:
+    """Full cache key: everything ``NeighborAlltoallV.init`` depends on.
+
+    ``params`` matters because ``strategy="auto"`` selects per machine
+    model; the frozen dataclass itself is the key component (not just its
+    name) so a params object with changed rates and an unchanged name
+    cannot hit a plan selected under the old rates.
+    """
+    return (
+        pattern_fingerprint(pattern),
+        topo.n_procs,
+        topo.procs_per_region,
+        strategy,
+        value_bytes,
+        params,
+    )
+
+
+@dataclass
+class PlanCache:
+    """Cache of initialized collectives and bound executors.
+
+    Bounded: each namespace (``collective``, ``executor``) holds at most
+    :attr:`max_entries` entries under LRU eviction; evictions are counted.
+    :meth:`stats` reports hits, misses and entries per namespace and the
+    init seconds spent and saved.
+    """
+
+    evictions: int = 0
+    max_entries: int = 512          # per namespace; <= 0 disables the bound
+    init_seconds_spent: float = 0.0
+    init_seconds_saved: float = 0.0
+    _colls: Dict[Tuple, NeighborAlltoallV] = field(default_factory=dict)
+    _execs: Dict[Tuple, Callable] = field(default_factory=dict)
+    _ns_counts: Dict[str, Dict[str, int]] = field(default_factory=dict)
+
+    @property
+    def hits(self) -> int:
+        return self._ns("collective")["hits"]
+
+    @property
+    def misses(self) -> int:
+        return self._ns("collective")["misses"]
+
+    @property
+    def exec_hits(self) -> int:
+        return self._ns("executor")["hits"]
+
+    @property
+    def exec_misses(self) -> int:
+        return self._ns("executor")["misses"]
+
+    def _ns(self, name: str) -> Dict[str, int]:
+        return self._ns_counts.setdefault(name, {"hits": 0, "misses": 0})
+
+    def _lookup(self, store: Dict, key, ns: str):
+        """LRU-aware get: a hit moves the entry to the recent end."""
+        entry = store.get(key)
+        if entry is not None:
+            store[key] = store.pop(key)    # dicts iterate in insert order
+            self._ns(ns)["hits"] += 1
+        else:
+            self._ns(ns)["misses"] += 1
+        return entry
+
+    def _insert(self, store: Dict, key, value) -> None:
+        if self.max_entries > 0 and len(store) >= self.max_entries:
+            store.pop(next(iter(store)))   # least-recently used
+            self.evictions += 1
+        store[key] = value
+
+    def collective(
+        self,
+        pattern: CommPattern,
+        topo: Topology,
+        strategy: str = "auto",
+        value_bytes: int = 8,
+        params: MachineParams = LASSEN,
+    ) -> NeighborAlltoallV:
+        """Cached ``NeighborAlltoallV.init``: a hit skips re-planning."""
+        key = plan_cache_key(pattern, topo, strategy, value_bytes, params)
+        coll = self._lookup(self._colls, key, "collective")
+        if coll is not None:
+            self.init_seconds_saved += coll.init_seconds
+            return coll
+        coll = NeighborAlltoallV.init(
+            pattern, topo, strategy, value_bytes=value_bytes, params=params
+        )
+        self.init_seconds_spent += coll.init_seconds
+        self._insert(self._colls, key, coll)
+        return coll
+
+    def executor(
+        self,
+        pattern: CommPattern,
+        topo: Topology,
+        device=None,
+        strategy: str = "auto",
+        value_bytes: int = 8,
+        params: MachineParams = LASSEN,
+    ) -> Callable:
+        """Cached bound executor (plan + index arrays on ``device``)."""
+        ckey = plan_cache_key(pattern, topo, strategy, value_bytes, params)
+        # silent lookup: binding an executor for an already-initialized
+        # collective is not a plan-cache hit (it never risked re-planning)
+        coll = self._colls.get(ckey)
+        if coll is None:
+            coll = self.collective(pattern, topo, strategy, value_bytes, params)
+        device = resolve_device(device)
+        key = (ckey, str(device))
+        fn = self._lookup(self._execs, key, "executor")
+        if fn is not None:
+            return fn
+        fn = coll.bind(device)
+        self._insert(self._execs, key, fn)
+        return fn
+
+    def stats(self) -> Dict[str, Any]:
+        """Flat hit/miss counters, per-namespace breakdown, init seconds."""
+        sizes = {"collective": len(self._colls), "executor": len(self._execs)}
+        return {
+            "hits": self.hits,
+            "misses": self.misses,
+            "exec_hits": self.exec_hits,
+            "exec_misses": self.exec_misses,
+            "evictions": self.evictions,
+            "namespaces": {
+                ns: {**self._ns(ns), "entries": sizes[ns]} for ns in sizes
+            },
+            "entries": sum(sizes.values()),
+            "max_entries": self.max_entries,
+            "init_seconds_spent": self.init_seconds_spent,
+            "init_seconds_saved": self.init_seconds_saved,
+        }
+
+    def clear(self) -> None:
+        self._colls.clear()
+        self._execs.clear()
+
+
+_DEFAULT_CACHE: "PlanCache | None" = None
+
+
+def default_plan_cache() -> PlanCache:
+    """Process-wide cache shared by AMG setups unless a private one is
+    passed."""
+    global _DEFAULT_CACHE
+    if _DEFAULT_CACHE is None:
+        _DEFAULT_CACHE = PlanCache()
+    return _DEFAULT_CACHE

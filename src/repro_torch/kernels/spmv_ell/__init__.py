@@ -1,0 +1,22 @@
+from .ops import (
+    DEFAULT_BLOCK_COLS,
+    DEFAULT_BLOCK_ROWS,
+    csr_to_ell,
+    spmv,
+    spmv_blocked,
+    spmv_blocked_partial,
+    spmv_blocked_skip,
+)
+from .ref import (
+    spmv_ell_blocked_partial_ref,
+    spmv_ell_blocked_ref,
+    spmv_ell_blocked_skip_ref,
+    spmv_ell_ref,
+)
+
+__all__ = [
+    "csr_to_ell", "spmv", "spmv_blocked",
+    "spmv_blocked_partial", "spmv_blocked_skip",
+    "spmv_ell_ref", "spmv_ell_blocked_ref", "spmv_ell_blocked_partial_ref",
+    "spmv_ell_blocked_skip_ref", "DEFAULT_BLOCK_COLS", "DEFAULT_BLOCK_ROWS",
+]
