@@ -5,25 +5,37 @@ Run from the repository root with no arguments::
 
     python3 chip_smoke.py
 
-It drives the port's main path, the paper's distributed AMG solve, on the
-card and fails (non-zero exit) if any phase fails:
+It drives the port's two paths on the card and fails (non-zero exit) if
+any phase fails:
 
-1. builds the CUDA SpMV kernels (K1-K4) from ``src/repro_torch/csrc``;
-2. checks that the exchange executor delivers ghosts bitwise equal to the
-   host oracle ``CommPlan.execute_numpy`` for the three strategies;
+1. builds the CUDA kernels K1-K7 from ``src/repro_torch/csrc``, one
+   ``nvcc`` per source, in parallel;
+2. AMG: checks that the exchange executor delivers ghosts bitwise equal to
+   the host oracle ``CommPlan.execute_numpy`` for the three strategies;
 3. solves the paper problem (524,288 rows, 8 ranks, ``procs_per_region=4``,
    Section-5 ``auto`` strategy under the paper machine model) with every
    kernel variant x overlap schedule, holds each residual history against
    the host solver's on the same hierarchy, counts the kernel launches,
    profiles a few V-cycles (device busy time and idle share) and records
    every kernel call of one V-cycle;
-4. holds every kernel against its plain torch version, in float64 and
-   float32, on the operands the solves gave it (each distinct call of the
-   recorded V-cycles), and times it there; plus an edge case (ragged last
-   row block, an empty bucket, ``hi == lo`` for K3, ``M > counts[i]`` for
-   K4) and a stress case the solves never make (K2/K3 over all buckets of
-   the fine level's bucketed layout);
-5. checks that the solves launched every kernel.
+4. holds K1-K4 against their plain torch versions, in float64 and float32,
+   on the operands the solves gave them (each distinct call of the
+   recorded V-cycles), and times them there; plus an edge case (ragged
+   last row block, an empty bucket, ``hi == lo`` for K3, ``M > counts[i]``
+   for K4) and a stress case the solves never make (K2/K3 over all buckets
+   of the fine level's bucketed layout);
+5. serve: draws DeepSeek-V2-Lite at full width and depth in bf16 on the
+   card (seeded) and serves six requests through ``ServeEngine`` on 8 EP
+   lanes (2 pods x 4) under ``a2a``, ``hier``, ``hier_dedup`` and
+   ``auto``, counting K5-K7 launches per prefill and decode step; replays
+   every engine call through the plain versions of K5-K7 with the same
+   routing decisions (logits and greedy tokens must agree); checks that
+   the modes agree under ample capacity; holds every K5-K7 call of one
+   prefill and one decode step, and edge cases, against the plain
+   versions in bf16 and float32, times the largest calls, and profiles a
+   short serve run;
+6. checks that each path launched each of its kernels, and prints one
+   JSON line with every kernel's record.
 
 Its last line is ``{"ok": true, "device": {...}}``.  It uses no JAX.
 """
@@ -51,7 +63,8 @@ TOL = {"float64": 1e-12, "float32": 1e-5}
 HIST_RTOL, HIST_ATOL = 1e-8, 1e-15
 # NVIDIA H100 SXM data sheet: memory rate and non-tensor-core peaks
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float64": 34e12, "float32": 67e12}
+# (bf16: the tensor cores' dense rate)
+PEAK_FLOPS = {"float64": 34e12, "float32": 67e12, "bfloat16": 989e12}
 SOURCE = "src/repro_torch/csrc/spmv_ell.cu"
 REPLACES = {
     "spmv_ell": "src/repro/kernels/spmv_ell/spmv_ell.py:80",
@@ -548,7 +561,7 @@ def solve_phase(h, b, device, block_cols: int, on_card: bool,
         if on_card:
             torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3 / v_cycles
-        counts = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+        counts = {k: LAUNCHES[k] - before[k] for k in REPLACES}
         dev = float(np.max(np.abs(np.asarray(hist) - np.asarray(host_hist))
                            / np.maximum(np.abs(host_hist), 1e-300)))
         ok = len(hist) == len(host_hist) and np.allclose(
@@ -580,6 +593,725 @@ def solve_phase(h, b, device, block_cols: int, on_card: bool,
     return per_solve, recorded
 
 
+# ------------------------------------------------------------- serve phase
+SERVE_ARCH = "deepseek-v2-lite-16b"
+SERVE_MESH = (("pod", "model"), (2, 4))    # 8 EP lanes, the AMG's 2 x 4
+SERVE_MODES = ("a2a", "hier", "hier_dedup", "auto")
+SERVE_SEED = 0
+AMPLE_CAP = 8.0                 # no capacity drops: every mode is one function
+# logits: max |kernel - plain| <= LOGIT_TOL * max |plain| per call, in bf16
+# (a few bf16 roundings, 2^-8 each, that differ between the two through 27
+# layers); greedy tokens must agree on every row whose top-2 margin exceeds
+# that absolute tolerance
+LOGIT_TOL = 2 ** -5
+# one kernel call against its plain version, normwise: bf16 allows one
+# rounding of the output (2^-8 relative) on either side
+SERVE_TOL = {"bfloat16": 2 ** -7, "float32": 1e-5}
+SERVE_SOURCES = {
+    "gather_rows": ("src/repro_torch/csrc/moe_pack.cu",
+                    "src/repro/kernels/moe_pack/moe_pack.py:39"),
+    "combine_rows": ("src/repro_torch/csrc/moe_pack.cu",
+                     "src/repro/kernels/moe_pack/moe_pack.py:79"),
+    "flash_attention_bh": (
+        "src/repro_torch/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention/flash_attention.py:96"),
+}
+
+
+def serve_sizes(on_card: bool) -> dict:
+    """Slots, cache length and requests (prompt lengths, tokens to
+    generate); six requests on four slots, so slots are recycled and the
+    batch re-prefilled.  Off the card, the CPU rehearsal's tiny sizes."""
+    if on_card:
+        return dict(slots=4, max_len=512,
+                    prompts=(100, 400, 250, 330, 180, 120),
+                    new=(16, 32, 24, 20, 28, 16))
+    return dict(slots=4, max_len=32, prompts=(5, 12, 9, 7, 3, 6),
+                new=(3, 4, 2, 3, 4, 2))
+
+
+def serve_requests(vocab: int, sizes: dict) -> list:
+    import numpy as np
+
+    from repro_torch.serve import Request
+
+    rng = np.random.default_rng(SERVE_SEED)
+    return [Request(rid=i, prompt=rng.integers(0, vocab, size=(n,)).astype(
+        np.int32), max_new_tokens=m)
+        for i, (n, m) in enumerate(zip(sizes["prompts"], sizes["new"]))]
+
+
+def card_sync(on_card: bool) -> None:
+    import torch
+
+    if on_card:
+        torch.cuda.synchronize()
+
+
+@contextlib.contextmanager
+def bound_kernels(gather, combine, flash):
+    """Bind the served model's K5 / K6 / K7 call sites (``moe.pack_gather``,
+    ``moe.pack_combine``, ``attention.flash``) to the given functions while
+    the block runs."""
+    from repro_torch.models import attention, moe
+
+    saved = moe.pack_gather, moe.pack_combine, attention.flash
+    moe.pack_gather, moe.pack_combine, attention.flash = gather, combine, flash
+    try:
+        yield
+    finally:
+        moe.pack_gather, moe.pack_combine, attention.flash = saved
+
+
+def plain_kernels():
+    """The model bound to the plain versions of K5-K7: its oracle."""
+    from repro_torch.kernels.flash_attention import attention_ref
+    from repro_torch.kernels.moe_pack import combine_rows_ref, gather_rows_ref
+
+    return bound_kernels(gather_rows_ref, combine_rows_ref, attention_ref)
+
+
+def planted_faults() -> dict:
+    """The model bound to its kernels with one fault planted in each
+    binding: the oracle must catch every one of them."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import attention
+    from repro_torch.kernels.moe_pack import combine, pack
+
+    def k6_drops_last_weight(buf, idx, w):
+        return combine(buf, idx, torch.cat(
+            [w[:, :-1], torch.zeros_like(w[:, -1:])], dim=1))
+
+    def k7_ignores_q_offset(q, k, v, **kw):
+        return attention(q, k, v, **dict(kw, q_offset=0))
+
+    return {
+        "K6 drops the last of its K weights": bound_kernels(
+            pack, k6_drops_last_weight, attention),
+        "K7 ignores q_offset": bound_kernels(pack, combine,
+                                             k7_ignores_q_offset),
+    }
+
+
+@contextlib.contextmanager
+def recording_serve_kernel_calls(calls: dict, phase: str):
+    """Record the K5 / K6 / K7 calls the served path makes while the block
+    runs: ``calls[(kernel, phase, shape key)] = [calls, [arguments of each
+    call]]``.  The calls still go through to the ops."""
+    import torch
+
+    from repro_torch.models import attention, moe
+
+    def key(name, a):
+        return (name, phase) + tuple(
+            (k, tuple(v.shape), str(v.dtype)) if torch.is_tensor(v) else (k, v)
+            for k, v in sorted(a.items()))
+
+    def record(name, a):
+        entry = calls.setdefault(key(name, a), [0, []])
+        entry[0] += 1
+        entry[1].append(a)
+
+    def pack(x, idx):
+        record("gather_rows", dict(x=x, idx=idx))
+        return saved["pack_gather"](x, idx)
+
+    def combine(buf, idx, w):
+        record("combine_rows", dict(buf=buf, idx=idx, w=w))
+        return saved["pack_combine"](buf, idx, w)
+
+    def flash(q, k, v, **kw):
+        B, H, Tq, d = q.shape
+        record("flash_attention_bh", dict(
+            q=q.reshape(B * H, Tq, d), k=k.reshape(B * H, -1, d),
+            v=v.reshape(B * H, -1, d), scale=float(kw["scale"]),
+            causal=bool(kw["causal"]), window=int(kw.get("window", 0)),
+            kv_len=int(kw["kv_len"]), q_offset=int(kw["q_offset"])))
+        return saved["flash"](q, k, v, **kw)
+
+    saved = dict(pack_gather=moe.pack_gather, pack_combine=moe.pack_combine,
+                 flash=attention.flash)
+    with bound_kernels(pack, combine, flash):
+        yield calls
+
+
+def recording_engine(engine, on_card: bool, kernel_calls=None) -> list:
+    """Wrap the engine's prefill and decode so that each call's inputs,
+    logits (on the host), seconds and kernel launches are recorded; with
+    ``kernel_calls``, also the K5-K7 calls of the first prefill and the
+    first decode step."""
+    from repro_torch.kernels import LAUNCHES
+
+    calls: list = []
+    prefill, decode = engine._prefill, engine._decode
+
+    def run(kind, fn, args, rec):
+        first = kernel_calls is not None and not any(
+            c["kind"] == kind for c in calls)
+        card_sync(on_card)
+        before = dict(LAUNCHES)
+        t0 = time.perf_counter()
+        with (recording_serve_kernel_calls(kernel_calls, kind) if first
+              else contextlib.nullcontext()):
+            logits, caches = fn(*args)
+            card_sync(on_card)
+        rec.update(kind=kind, s=time.perf_counter() - t0,
+                   logits=logits.float().cpu(),
+                   launches={k: LAUNCHES[k] - before[k] for k in LAUNCHES})
+        calls.append(rec)
+        return logits, caches
+
+    engine._prefill = lambda p, i: run(
+        "prefill", prefill, (p, i), dict(tokens=i["tokens"].cpu()))
+    engine._decode = lambda p, i, c, n: run(
+        "decode", decode, (p, i, c, n), dict(tokens=i["tokens"].cpu(),
+                                             cur_len=int(n)))
+    return calls
+
+
+def serve_summary(calls: list) -> dict:
+    """Prefill tokens/s, ms per decode step and launches per call of the
+    recorded engine calls."""
+    pre = [c for c in calls if c["kind"] == "prefill"]
+    dec = [c for c in calls if c["kind"] == "decode"]
+    out = dict(
+        prefills=len(pre), decode_steps=len(dec),
+        prefill_tokens=sum(c["tokens"].numel() for c in pre),
+        prefill_s=sum(c["s"] for c in pre),
+        decode_ms=1e3 * sum(c["s"] for c in dec) / max(1, len(dec)),
+    )
+    out["prefill_tok_s"] = out["prefill_tokens"] / max(out["prefill_s"],
+                                                       1e-12)
+    for tag, group in (("prefill", pre), ("decode", dec)):
+        per = {k: sum(c["launches"][k] for c in group) / max(1, len(group))
+               for k in SERVE_SOURCES}
+        out[f"launches_per_{tag}"] = per
+    return out
+
+
+@contextlib.contextmanager
+def routing(decisions: list, replay: bool):
+    """Record the MoE router's decisions (``moe.route``'s expert ids,
+    weights and aux loss, call by call) while the block runs, or replay
+    recorded ones in the same order.  Replaying still runs the router and
+    counts the (lane, token) rows whose own expert ids differ from the
+    recorded ones."""
+    from repro_torch.models import moe
+
+    real = moe.route
+    stats = {"rows": 0, "flipped": 0}
+    recorded = iter(decisions)
+
+    def record(x, router_w, plan):
+        out = real(x, router_w, plan)
+        decisions.append(out)
+        return out
+
+    def forced(x, router_w, plan):
+        own, rec = real(x, router_w, plan), next(recorded)
+        if own[0].shape != rec[0].shape:
+            fail(f"routing replay: {tuple(own[0].shape)} vs "
+                 f"{tuple(rec[0].shape)}")
+        stats["rows"] += own[0].numel() // own[0].shape[-1]
+        stats["flipped"] += int((own[0] != rec[0]).any(-1).sum())
+        return rec
+
+    moe.route = forced if replay else record
+    try:
+        yield stats
+    finally:
+        moe.route = real
+
+
+def replay(model, params, engine, calls: list, decisions: list,
+           binding) -> tuple:
+    """The recorded engine calls again, with the same inputs and the same
+    routing decisions, under ``binding`` (a :func:`bound_kernels`); returns
+    their logits on the host and the routing flips.
+
+    The routing is replayed because it is discrete: a bf16 rounding that
+    differs between a kernel and its plain version moves a router input by
+    an ulp, which can swap a token's 6th and 7th expert, and the swap
+    changes that token's output by a whole expert's share.  Replayed, a
+    comparison measures the kernels; the swaps are counted."""
+    from repro_torch.models import serving
+
+    dev = model.device
+    out, caches = [], None
+    with binding, routing(decisions, replay=True) as flips:
+        for c in calls:
+            toks = {"tokens": c["tokens"].to(dev)}
+            if c["kind"] == "prefill":
+                logits, caches = serving.prefill(
+                    model, params, toks, max_len=engine.max_len,
+                    moe_plan=engine.moe_prefill_plan)
+            else:
+                logits, caches = serving.decode_step(model, params, toks,
+                                                     caches, c["cur_len"])
+            out.append(logits.float().cpu())
+    return out, flips
+
+
+def compare_logits(got: list, want: list) -> dict:
+    """Call by call: the largest ``max |got - want| / max |want|``, and the
+    rows whose greedy tokens differ among those whose top-2 margin in
+    ``got`` exceeds ``LOGIT_TOL`` of the largest logit."""
+    import torch
+
+    worst, rows, sure_rows, differ = 0.0, 0, 0, 0
+    for g, w in zip(got, want):
+        scale = float(w.abs().max())
+        worst = max(worst, float((g - w).abs().max()) / max(scale, 1e-30))
+        top2 = torch.topk(g, 2, dim=-1).values
+        sure = (top2[:, 0] - top2[:, 1]) > LOGIT_TOL * scale
+        same = torch.argmax(g, -1) == torch.argmax(w, -1)
+        rows += g.shape[0]
+        sure_rows += int(sure.sum())
+        differ += int((sure & ~same).sum())
+    return dict(rel_err=worst, rows=rows, sure=sure_rows, differ=differ)
+
+
+def replay_plain(model, params, engine, calls: list, decisions: list,
+                 on_card: bool, faults: bool = False) -> dict:
+    """The oracle: the recorded engine calls replayed (:func:`replay`)
+    through the plain versions of K5-K7 on the same device; the kernel
+    run's logits held to them within ``LOGIT_TOL``, greedy tokens equal on
+    every row whose top-2 margin exceeds it.  With ``faults``, the calls
+    are replayed once more through the kernels under each planted fault,
+    and the oracle must refuse every one."""
+    plain, flips = replay(model, params, engine, calls, decisions,
+                          plain_kernels())
+    res = compare_logits([c["logits"] for c in calls], plain)
+    if not res["rel_err"] <= LOGIT_TOL:
+        fail(f"plain-version oracle: logits differ by {res['rel_err']:.3e} "
+             f"of their max, above {LOGIT_TOL}")
+    if res["differ"]:
+        fail(f"plain-version oracle: greedy tokens differ on {res['differ']} "
+             "rows with a clear top-2 margin")
+    out = dict(oracle_rel_err=res["rel_err"], oracle_rows=res["rows"],
+               oracle_sure=res["sure"], route_rows=flips["rows"],
+               route_flips=flips["flipped"], planted={})
+    for name, binding in (planted_faults() if faults else {}).items():
+        bad, _ = replay(model, params, engine, calls, decisions, binding)
+        got = compare_logits(bad, plain)
+        out["planted"][name] = got
+        if got["rel_err"] <= LOGIT_TOL and not got["differ"]:
+            fail(f"the oracle misses a planted fault ({name}): logits within "
+                 f"{got['rel_err']:.3e}, greedy tokens equal")
+    card_sync(on_card)
+    return out
+
+
+def serve_work(name: str, a: dict):
+    """(bytes, flops) a K5-K7 call must move and do: each input read once,
+    the output written once, counting only what this call's data needs
+    (K6 the distinct rows its indices read, K7 the keys below kv_len and
+    the visible (query, key) pairs)."""
+    import torch
+
+    if name == "gather_rows":
+        x, idx = a["x"], a["idx"]
+        row = x.shape[1] * x.element_size()
+        rows = int(torch.unique(idx).numel())
+        return rows * row + idx.numel() * (4 + row), 0
+    if name == "combine_rows":
+        buf, idx, w = a["buf"], a["idx"], a["w"]
+        row = buf.shape[1] * buf.element_size()
+        rows = int(torch.unique(idx).numel())
+        T, K = idx.shape
+        return (rows * row + idx.numel() * 8 + T * row,
+                2 * T * K * buf.shape[1])
+    from repro_torch.kernels.flash_attention.ref import attention_mask
+
+    q, k = a["q"], a["k"]
+    BH, Tq, d = q.shape
+    es = q.element_size()
+    keys = min(a["kv_len"], k.shape[1])
+    pairs = int(attention_mask(Tq, k.shape[1], a["causal"], a["window"],
+                               a["kv_len"], a["q_offset"], q.device).sum())
+    return (2 * BH * Tq * d * es + 2 * BH * keys * d * es,
+            4 * BH * pairs * d)
+
+
+def serve_kernel_call(name: str, a: dict):
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.moe_pack import ops as mp_ops
+
+    if name == "gather_rows":
+        return mp_ops.pack(a["x"], a["idx"])
+    if name == "combine_rows":
+        return mp_ops.combine(a["buf"], a["idx"], a["w"])
+    return fa_ops.flash_attention_bh(
+        a["q"], a["k"], a["v"], scale=a["scale"], causal=a["causal"],
+        window=a["window"], kv_len=a["kv_len"], q_offset=a["q_offset"])
+
+
+def serve_plain_call(name: str, a: dict):
+    from repro_torch.kernels.flash_attention.ref import flash_attention_bh_ref
+    from repro_torch.kernels.moe_pack.ref import (
+        combine_rows_ref,
+        gather_rows_ref,
+    )
+
+    if name == "gather_rows":
+        return gather_rows_ref(a["x"], a["idx"])
+    if name == "combine_rows":
+        return combine_rows_ref(a["buf"], a["idx"], a["w"])
+    return flash_attention_bh_ref(
+        a["q"], a["k"], a["v"], scale=a["scale"], causal=a["causal"],
+        window=a["window"], kv_len=a["kv_len"], q_offset=a["q_offset"])
+
+
+def serve_library_call(name: str, a: dict):
+    """One PyTorch call computing the same function, as a yardstick only:
+    ``index_select`` for K5, ``embedding_bag(mode="sum",
+    per_sample_weights=...)`` for K6 (its weights rounded to buf's dtype),
+    ``scaled_dot_product_attention`` with the explicit mask for K7."""
+    import torch
+    import torch.nn.functional as tf
+
+    from repro_torch.kernels.flash_attention.ref import attention_mask
+
+    if name == "gather_rows":
+        return lambda: torch.index_select(a["x"], 0, a["idx"])
+    if name == "combine_rows":
+        w = a["w"].to(a["buf"].dtype)
+        return lambda: tf.embedding_bag(a["idx"], a["buf"], mode="sum",
+                                        per_sample_weights=w)
+    q, k, v = a["q"], a["k"], a["v"]
+    mask = attention_mask(q.shape[1], k.shape[1], a["causal"], a["window"],
+                          a["kv_len"], a["q_offset"], q.device)
+    return lambda: tf.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                   scale=a["scale"])
+
+
+def serve_cast(a: dict, dtype) -> dict:
+    """The call with its row tables / q, k, v in ``dtype`` (K6's weights
+    stay float32)."""
+    import torch
+
+    return {k: v.to(dtype) if torch.is_tensor(v) and v.is_floating_point()
+            and k != "w" else v for k, v in a.items()}
+
+
+def check_serve_call(name: str, a: dict, label: str) -> float:
+    """The kernel against its plain version in bf16 and float32 (normwise
+    ``SERVE_TOL``; K5 exactly); returns the bf16 max |difference|."""
+    import torch
+
+    abs_err = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[1]
+        ad = serve_cast(a, dtype)
+        got, want = serve_kernel_call(name, ad), serve_plain_call(name, ad)
+        if got.shape != want.shape or got.dtype != want.dtype:
+            fail(f"{name} {label} {dname}: {tuple(got.shape)} {got.dtype} vs "
+                 f"{tuple(want.shape)} {want.dtype}")
+        if not bool(torch.isfinite(got).all()):
+            fail(f"{name} {label} {dname}: non-finite output")
+        err = rel_err(got.float(), want.float())
+        tol = 0.0 if name == "gather_rows" else SERVE_TOL[dname]
+        if not err <= tol:
+            fail(f"{name} {label} {dname}: max rel error {err} > {tol}")
+        if dtype == torch.bfloat16 and got.numel():
+            abs_err = float(torch.max(torch.abs(got.float() - want.float())))
+    return abs_err
+
+
+def time_serve_call(name: str, a: dict, on_card: bool) -> dict:
+    """Kernel, plain and library ms of the call, and its bound."""
+    nbytes, flops = serve_work(name, a)
+    dname = str(a["x" if name == "gather_rows" else
+                  "buf" if name == "combine_rows" else "q"].dtype).split(".")[1]
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[dname]
+    return dict(
+        ms=time_ms(lambda: serve_kernel_call(name, a), on_card),
+        plain_ms=time_ms(lambda: serve_plain_call(name, a), on_card),
+        library_ms=time_ms(serve_library_call(name, a), on_card),
+        bound_ms=max(t_bytes, t_ops) * 1e3,
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        mbytes=nbytes / 1e6, gflop=flops / 1e9,
+    )
+
+
+def serve_call_shape(name: str, a: dict) -> str:
+    if name == "gather_rows":
+        return f"x {list(a['x'].shape)} idx {list(a['idx'].shape)}"
+    if name == "combine_rows":
+        return f"buf {list(a['buf'].shape)} idx {list(a['idx'].shape)}"
+    return (f"q {list(a['q'].shape)} k {list(a['k'].shape)} kv_len "
+            f"{a['kv_len']} q_offset {a['q_offset']}")
+
+
+def serve_kernel_phase(recorded: dict, on_card: bool) -> dict:
+    """Every recorded K5-K7 call of one prefill and one decode step against
+    its plain version; the largest prefill and decode call of each kernel
+    timed.  Returns per kernel its largest prefill call's record, the
+    decode record beside it."""
+    results: dict = {}
+    largest: dict = {}
+    for (name, phase, *_), (n_calls, args) in recorded.items():
+        rec = results.setdefault(name, {"max_abs_err": 0.0, "checked": 0})
+        for a in args:
+            rec["max_abs_err"] = max(rec["max_abs_err"],
+                                     check_serve_call(name, a, phase))
+            rec["checked"] += 1
+            size = serve_work(name, a)[0]
+            if size > largest.get((name, phase), (-1, None))[0]:
+                largest[(name, phase)] = (size, a)
+        log(f"kernel {name:18s} {phase:7s} {serve_call_shape(name, args[0])}:"
+            f" {n_calls} calls, each within tolerance of its plain version "
+            "in bf16 and float32")
+    for (name, phase), (_size, a) in sorted(largest.items()):
+        t = time_serve_call(name, a, on_card)
+        log(f"  {name} largest {phase} call ({serve_call_shape(name, a)}, "
+            f"{t['mbytes']:.2f} MB, {t['gflop']:.3f} GFLOP): kernel "
+            f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library "
+            f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+            f"({t['bound_by']})")
+        if phase == "prefill":
+            results[name].update(t)
+        else:
+            results[name]["decode"] = t
+    return results
+
+
+def serve_edge_calls(device, gen) -> list:
+    """K5-K7 calls the served path does not make: a ragged row count, a row
+    width that takes the 2-byte copy unit, all-pad indices, K = 1, GQA
+    head dims 64 / 128 / 256 and 24 (padded to 32), fully masked attention
+    rows, and q_offset > 0 with kv_len < Tk."""
+    import torch
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen).to(device)
+
+    def idx(n, *shape):
+        return torch.randint(0, n, shape, generator=gen,
+                             dtype=torch.int32).to(device)
+
+    def table(n, d):
+        x = rnd(n + 1, d)
+        x[-1] = 0.0
+        return x
+
+    t = table(777, 2048)
+    pad = torch.full((64,), 777, dtype=torch.int32, device=device)
+    calls = [
+        ("gather_rows", dict(x=t, idx=idx(778, 1001))),
+        ("gather_rows", dict(x=table(50, 37), idx=idx(51, 333))),
+        ("gather_rows", dict(x=t, idx=pad)),
+        ("combine_rows", dict(buf=t, idx=idx(778, 999, 6),
+                              w=torch.rand(999, 6, generator=gen).to(device))),
+        ("combine_rows", dict(buf=t, idx=idx(778, 64, 1),
+                              w=torch.rand(64, 1, generator=gen).to(device))),
+        ("combine_rows", dict(buf=t, idx=pad.reshape(32, 2),
+                              w=torch.ones(32, 2, device=device))),
+    ]
+    for d, Tq, Tk, causal, window, kv_len, q_offset in (
+            (64, 40, 40, True, 0, 40, 0), (128, 17, 300, True, 0, 201, 184),
+            (256, 33, 64, False, 0, 50, 0), (24, 12, 48, True, 0, 12, 0),
+            (192, 16, 64, True, 4, 44, 40), (192, 1, 512, True, 0, 77, 76)):
+        calls.append(("flash_attention_bh", dict(
+            q=rnd(6, Tq, d), k=rnd(6, Tk, d), v=rnd(6, Tk, d),
+            scale=d ** -0.5, causal=causal, window=window, kv_len=kv_len,
+            q_offset=q_offset)))
+    return calls
+
+
+def profile_serve(model, params, sizes: dict, on_card: bool) -> dict:
+    """A short serve run (four requests) under ``torch.profiler``: the
+    card's busy time (union of its kernel intervals) against the unprofiled
+    wall time of the same run, and the ops taking the most device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serve import ServeEngine
+
+    small = dict(sizes, prompts=sizes["prompts"][:4],
+                 new=tuple(max(2, n // 4) for n in sizes["new"][:4]))
+
+    def run():
+        eng = ServeEngine(model, params, batch_slots=sizes["slots"],
+                          max_len=sizes["max_len"])
+        for r in serve_requests(model.cfg.vocab, small):
+            eng.submit(r)
+        eng.run_until_drained()
+        card_sync(on_card)
+
+    run()                                         # warm
+    t0 = time.perf_counter()
+    run()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+    on_device = [e for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = _union_us((e.time_range.start, e.time_range.end)
+                        for e in on_device) / 1e3
+    ranked = sorted(prof.key_averages(),
+                    key=lambda e: -e.self_device_time_total)[:6]
+    top = ", ".join(f"{e.key[:40]} {e.self_device_time_total / 1e3:.2f}"
+                    for e in ranked if e.self_device_time_total)
+    return dict(wall_ms=wall_ms, busy_ms=busy_ms,
+                idle_share=1.0 - busy_ms / wall_ms,
+                device_ops=len(on_device), top_device=top)
+
+
+def serve_run(device: str = "cuda", reduced_config: bool = False) -> dict:
+    """The serve phase: DeepSeek-V2-Lite (full width and depth on the card,
+    the reduced config for the CPU rehearsal) in bf16 on 8 stacked EP lanes,
+    served under every mode.  Returns per mode its summary, the launches
+    of the served path, the kernel records and the profile."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.core.costmodel import LASSEN
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import Mesh, Model, serving
+    from repro_torch.serve import ServeEngine
+
+    on_card = device == "cuda"
+    cfg = (configs.reduced if reduced_config else configs.get)(SERVE_ARCH)
+    mesh = Mesh(*SERVE_MESH)
+    sizes = serve_sizes(on_card)
+    t0 = time.perf_counter()
+    params = Model(cfg, mesh=mesh, moe_mode="a2a",
+                   device=device).init_params(seed=SERVE_SEED)
+    card_sync(on_card)
+    leaves = []
+    stack = [params]
+    while stack:
+        for v in stack.pop().values():
+            (stack.append if isinstance(v, dict) else leaves.append)(v)
+    n_params = sum(t.numel() for t in leaves)
+    n_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    log(f"serve: {cfg.name}, {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_experts} experts top-{cfg.top_k} + {cfg.n_shared_experts} "
+        f"shared, vocab {cfg.vocab}, {cfg.dtype}, EP lanes {mesh.axes}; "
+        f"{n_params:,} parameters, {n_bytes / 1e9:.2f} GB on {device}, "
+        f"drawn in {time.perf_counter() - t0:.2f} s"
+        + (f"; {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated"
+           if on_card else ""))
+
+    def model_for(mode, cap=1.25):
+        return Model(cfg, mesh=mesh, moe_mode=mode, moe_cap_factor=cap,
+                     machine_params=LASSEN, device=device)
+
+    # warm-up (library handles, first launches): one short request, untimed
+    warm = ServeEngine(model_for("a2a"), params, batch_slots=sizes["slots"],
+                       max_len=sizes["max_len"])
+    warm.submit(serve_requests(cfg.vocab, dict(sizes, prompts=(16,),
+                                               new=(2,)))[0])
+    warm.run_until_drained()
+    del warm
+
+    modes, recorded, engines = {}, {}, {}
+    reset_launches()
+    for mode in SERVE_MODES:
+        model = model_for(mode)
+        t0 = time.perf_counter()
+        eng = ServeEngine(model, params, batch_slots=sizes["slots"],
+                          max_len=sizes["max_len"])
+        plan_s = time.perf_counter() - t0
+        calls = recording_engine(
+            eng, on_card,
+            recorded if mode in ("a2a", "hier_dedup") else None)
+        for r in serve_requests(cfg.vocab, sizes):
+            eng.submit(r)
+        decisions: list = []
+        t0 = time.perf_counter()
+        with routing(decisions, replay=False):
+            done = eng.run_until_drained()
+            card_sync(on_card)
+        wall = time.perf_counter() - t0
+        if len(done) != len(sizes["prompts"]) or any(
+                len(r.generated) != n or not all(0 <= t < cfg.vocab
+                                                 for t in r.generated)
+                for r, n in zip(sorted(done, key=lambda r: r.rid),
+                                sizes["new"])):
+            fail(f"serve {mode}: requests not served in full")
+        summ = serve_summary(calls)
+        summ.update(wall_s=wall, plan_s=plan_s,
+                    decode_mode=eng.moe_plan.mode,
+                    prefill_mode=eng.moe_prefill_plan.mode,
+                    tokens={r.rid: r.generated for r in done})
+        modes[mode] = summ
+        engines[mode] = (model, eng, calls, decisions)
+        log(f"serve {mode:10s}: {len(done)} requests in {wall:.2f} s "
+            f"(plans {plan_s:.2f} s; decode plan {summ['decode_mode']}, "
+            f"prefill plan {summ['prefill_mode']}); {summ['prefills']} "
+            f"prefills, {summ['prefill_tokens']} tokens, "
+            f"{summ['prefill_tok_s']:.1f} prefill tokens/s; "
+            f"{summ['decode_steps']} decode steps, {summ['decode_ms']:.3f} "
+            f"ms per step; launches per prefill "
+            f"{summ['launches_per_prefill']}, per decode step "
+            f"{summ['launches_per_decode']}")
+    card_sync(on_card)
+    launches = {k: LAUNCHES[k] for k in SERVE_SOURCES}
+    log(f"kernels launched by the served path: {launches}")
+
+    for mode, (model, eng, calls, decisions) in engines.items():
+        res = replay_plain(model, params, eng, calls, decisions, on_card,
+                           faults=mode == SERVE_MODES[0])
+        decisions.clear()
+        modes[mode].update(res)
+        log(f"oracle {mode:10s}: {len(calls)} calls through the plain "
+            f"versions, routing replayed ({res['route_flips']} of "
+            f"{res['route_rows']} lane-token routings would have differed); "
+            f"max |logit diff| / max |logit| {res['oracle_rel_err']:.3e} "
+            f"(tolerance {LOGIT_TOL}); greedy tokens equal on all "
+            f"{res['oracle_sure']} of {res['oracle_rows']} rows with a top-2 "
+            "margin above it")
+        for name, got in res["planted"].items():
+            log(f"oracle {mode:10s} refuses a planted fault, {name}: max "
+                f"|logit diff| / max |logit| {got['rel_err']:.3e}, greedy "
+                f"tokens differ on {got['differ']} of {got['sure']} rows with "
+                "a clear margin")
+
+    # ample capacity: no drops, so every transport computes one function
+    first = serve_requests(cfg.vocab, sizes)[:sizes["slots"]]
+    T = max(len(r.prompt) for r in first)
+    toks = torch.zeros((len(first), T), dtype=torch.int32)
+    for i, r in enumerate(first):
+        toks[i, T - len(r.prompt):] = torch.as_tensor(r.prompt)
+    agree = {}
+    for mode in SERVE_MODES:
+        logits, _ = serving.prefill(model_for(mode, AMPLE_CAP), params,
+                                    {"tokens": toks.to(device)},
+                                    max_len=sizes["max_len"])
+        agree[mode] = logits.float().cpu()
+    base = agree[SERVE_MODES[0]]
+    for mode, lg in agree.items():
+        err = float((lg - base).abs().max()) / float(base.abs().max())
+        log(f"modes agree at cap_factor {AMPLE_CAP}: {mode} vs "
+            f"{SERVE_MODES[0]} max |logit diff| / max |logit| {err:.3e}")
+        if not err <= LOGIT_TOL:
+            fail(f"modes disagree: {mode} vs {SERVE_MODES[0]} by {err}")
+    del agree
+
+    kernels = serve_kernel_phase(recorded, on_card)
+    recorded.clear()
+    gen = torch.Generator().manual_seed(1)
+    for name, a in serve_edge_calls(device, gen):
+        err = check_serve_call(name, a, "edge")
+        kernels[name]["max_abs_err"] = max(kernels[name]["max_abs_err"], err)
+        log(f"kernel {name:18s} edge    ({serve_call_shape(name, a)}): "
+            "within tolerance in bf16 and float32")
+    prof = None
+    if on_card:
+        prof = profile_serve(engines["auto"][0], params, sizes, on_card)
+        log(f"serve profile (auto, 4 requests): wall {prof['wall_ms']:.1f} "
+            f"ms, device busy {prof['busy_ms']:.1f} ms, idle share "
+            f"{prof['idle_share']:.3f}, {prof['device_ops']} device ops; "
+            f"most device ms: {prof['top_device']}")
+    return dict(modes=modes, launches=launches, kernels=kernels,
+                profile=prof, n_params=n_params, n_bytes=n_bytes)
+
+
 def run(device: str = "cuda", rows: int = 524_288, block_cols: int = 512,
         v_cycles: int = V_CYCLES) -> dict:
     """All phases at ``rows`` unknowns on ``device``, ``v_cycles`` timed
@@ -603,10 +1335,30 @@ def run(device: str = "cuda", rows: int = 524_288, block_cols: int = 512,
                                    v_cycles)
     if on_card:
         torch.cuda.synchronize()
-    launches = dict(LAUNCHES)
+    launches = {k: LAUNCHES[k] for k in REPLACES}
     kernels = path_kernel_phase(recorded, on_card)
     synthetic_kernel_phase(h, device, block_cols, on_card, kernels)
     return dict(kernels=kernels, launches=launches, solves=solves)
+
+
+def build_kernels() -> None:
+    """Build every CUDA source at once, one nvcc each, in parallel."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.kernels.flash_attention import cuda as fa_cuda
+    from repro_torch.kernels.moe_pack import cuda as mp_cuda
+    from repro_torch.kernels.spmv_ell import cuda as sp_cuda
+
+    libs = [sp_cuda.LIBRARY, mp_cuda.LIBRARY, fa_cuda.LIBRARY]
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(libs)) as pool:
+        paths = list(pool.map(lambda lib: lib.build(), libs))
+    log(f"nvcc build: {time.perf_counter() - t0:.2f} s -> "
+        f"{', '.join(p.name for p in paths)}")
+    for lib in libs:
+        for line in lib.build_log.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas {lib.source.name}: {line.strip()}")
 
 
 def main() -> int:
@@ -619,21 +1371,21 @@ def main() -> int:
         print(f"chip_smoke: {SRC / 'repro_torch'} not found", file=sys.stderr)
         return 1
     sys.path.insert(0, str(SRC))
-    from repro_torch.kernels.spmv_ell import cuda
-
+    t_start = time.perf_counter()
     smi = nvidia_smi_line()
     log(f"device: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
-    t0 = time.perf_counter()
-    lib = cuda.build()
-    log(f"nvcc build: {time.perf_counter() - t0:.2f} s -> {lib.name}")
-    for line in cuda.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+    build_kernels()
     res = run("cuda")
     missing = [k for k, n in res["launches"].items() if n <= 0]
     log(f"kernels launched by the solves: {res['launches']}")
     if missing:
         fail(f"kernels never launched on the main path: {missing}")
+    log(f"AMG phases done at {time.perf_counter() - t_start:.1f} s")
+    serve = serve_run("cuda")
+    missing = [k for k, n in serve["launches"].items() if n <= 0]
+    if missing:
+        fail(f"kernels never launched on the served path: {missing}")
+    log(f"serve phase done at {time.perf_counter() - t_start:.1f} s")
     records = []
     for name in REPLACES:
         rec = res["kernels"][name]
@@ -641,6 +1393,15 @@ def main() -> int:
             name=name, route="cuda", source=SOURCE, replaces=REPLACES[name],
             launches=res["launches"][name], max_abs_err=rec["max_abs_err"],
             ms=rec["ms"], plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
+            bound_by=rec["bound_by"], library_ms=rec["library_ms"],
+        ))
+    for name, (source, replaces) in SERVE_SOURCES.items():
+        rec = serve["kernels"][name]
+        records.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=serve["launches"][name],
+            max_abs_err=rec["max_abs_err"], ms=rec["ms"],
+            plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
             bound_by=rec["bound_by"], library_ms=rec["library_ms"],
         ))
     print(json.dumps({"kernels": records}))

@@ -1,10 +1,12 @@
-"""repro_torch: the PyTorch/CUDA port of ``repro``'s distributed AMG path.
+"""repro_torch: the PyTorch/CUDA port of ``repro``.
 
+Ported so far: the distributed AMG solve (``sparse``, ``amg``, ``core``)
+and MoE serving of DeepSeek-V2-Lite (``models``, ``serve``, ``configs``).
 The package mirrors ``repro``'s subpackages and public names, so a parity
 test can call both sides with the same arguments.  It imports ``torch`` and
-``numpy`` only.  Host planning (``core``, ``sparse.partition``, ``amg``
-setup) is numpy; vectors, plans' index arrays and ELL blocks live in torch
-tensors on one device, with the ranks stacked along a leading dim.
+``numpy`` only.  Host planning is numpy; vectors, plans' index arrays, ELL
+blocks and activations live in torch tensors on one device, with the
+solve's ranks and the MoE dispatch's EP lanes stacked along a leading dim.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 Every kernel wrapper dispatches on the device of the tensors it is given:

@@ -12,6 +12,14 @@ pattern's ownership/needs arrays) plus topology, strategy, value width and
 machine params, so two equal patterns hit regardless of object identity.
 Bound executors (which carry the plan's index arrays on a device) are
 cached one level down, keyed additionally on the device.
+
+The MoE dispatch has the same amortization surface
+(``models.moe.moe_plan_for``): :meth:`PlanCache.moe_plan` holds dispatch
+plans keyed on geometry plus the routing-pattern fingerprint, and
+:meth:`PlanCache.moe_executor` the per-geometry dispatch executors, with the
+reference's keys.  The flat hit/miss counters aggregate the plan namespaces
+(``collective`` + ``moe_plan``) and the executor namespaces (``executor`` +
+``moe_executor``), as ``repro``'s do.
 """
 from __future__ import annotations
 
@@ -22,6 +30,7 @@ from typing import Any, Callable, Dict, Tuple
 import numpy as np
 
 from .. import resolve_device
+from ..obs import now
 from .costmodel import LASSEN, MachineParams
 from .neighborhood import NeighborAlltoallV
 from .plan import CommPattern, Topology
@@ -88,7 +97,8 @@ def plan_cache_key(
 class PlanCache:
     """Cache of initialized collectives and bound executors.
 
-    Bounded: each namespace (``collective``, ``executor``) holds at most
+    Bounded: each namespace (``collective``, ``executor``, ``moe_plan``,
+    ``moe_executor``) holds at most
     :attr:`max_entries` entries under LRU eviction; evictions are counted.
     :meth:`stats` reports hits, misses and entries per namespace and the
     init seconds spent and saved.
@@ -100,23 +110,33 @@ class PlanCache:
     init_seconds_saved: float = 0.0
     _colls: Dict[Tuple, NeighborAlltoallV] = field(default_factory=dict)
     _execs: Dict[Tuple, Callable] = field(default_factory=dict)
+    # MoE dispatch: (plan, init seconds) keyed on geometry + routing
+    # fingerprint, and executors keyed on the fingerprint-free geometry
+    _moe_plans: Dict[Tuple, Tuple[Any, float]] = field(default_factory=dict)
+    _moe_execs: Dict[Tuple, Callable] = field(default_factory=dict)
     _ns_counts: Dict[str, Dict[str, int]] = field(default_factory=dict)
+
+    PLAN_NAMESPACES = ("collective", "moe_plan")
+    EXEC_NAMESPACES = ("executor", "moe_executor")
+
+    def _ns_sum(self, namespaces: Tuple[str, ...], which: str) -> int:
+        return sum(self._ns(ns)[which] for ns in namespaces)
 
     @property
     def hits(self) -> int:
-        return self._ns("collective")["hits"]
+        return self._ns_sum(self.PLAN_NAMESPACES, "hits")
 
     @property
     def misses(self) -> int:
-        return self._ns("collective")["misses"]
+        return self._ns_sum(self.PLAN_NAMESPACES, "misses")
 
     @property
     def exec_hits(self) -> int:
-        return self._ns("executor")["hits"]
+        return self._ns_sum(self.EXEC_NAMESPACES, "hits")
 
     @property
     def exec_misses(self) -> int:
-        return self._ns("executor")["misses"]
+        return self._ns_sum(self.EXEC_NAMESPACES, "misses")
 
     def _ns(self, name: str) -> Dict[str, int]:
         return self._ns_counts.setdefault(name, {"hits": 0, "misses": 0})
@@ -183,9 +203,36 @@ class PlanCache:
         self._insert(self._execs, key, fn)
         return fn
 
+    def moe_plan(self, key: Tuple, build: Callable[[], Any]) -> Any:
+        """Cached MoE dispatch plan: ``key`` carries the dispatch geometry
+        (mesh, tokens per lane, top-k, mode, capacity factor, ...) and the
+        routing-pattern fingerprint; ``build`` runs only on a miss."""
+        entry = self._lookup(self._moe_plans, key, "moe_plan")
+        if entry is not None:
+            self.init_seconds_saved += entry[1]
+            return entry[0]
+        t0 = now()
+        value = build()
+        secs = now() - t0
+        self.init_seconds_spent += secs
+        self._insert(self._moe_plans, key, (value, secs))
+        return value
+
+    def moe_executor(self, key: Tuple,
+                     build: Callable[[], Callable]) -> Callable:
+        """Cached dispatch executor of an MoE plan geometry."""
+        fn = self._lookup(self._moe_execs, key, "moe_executor")
+        if fn is not None:
+            return fn
+        fn = build()
+        self._insert(self._moe_execs, key, fn)
+        return fn
+
     def stats(self) -> Dict[str, Any]:
         """Flat hit/miss counters, per-namespace breakdown, init seconds."""
-        sizes = {"collective": len(self._colls), "executor": len(self._execs)}
+        sizes = {"collective": len(self._colls), "executor": len(self._execs),
+                 "moe_plan": len(self._moe_plans),
+                 "moe_executor": len(self._moe_execs)}
         return {
             "hits": self.hits,
             "misses": self.misses,
@@ -204,6 +251,8 @@ class PlanCache:
     def clear(self) -> None:
         self._colls.clear()
         self._execs.clear()
+        self._moe_plans.clear()
+        self._moe_execs.clear()
 
 
 _DEFAULT_CACHE: "PlanCache | None" = None

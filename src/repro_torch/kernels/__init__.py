@@ -23,6 +23,9 @@ LAUNCHES: Dict[str, int] = {
     "spmv_ell_blocked": 0,
     "spmv_ell_blocked_partial": 0,
     "spmv_ell_blocked_skip": 0,
+    "gather_rows": 0,
+    "combine_rows": 0,
+    "flash_attention_bh": 0,
 }
 
 

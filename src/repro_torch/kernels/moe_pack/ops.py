@@ -1,0 +1,47 @@
+"""Public MoE pack / combine ops: input validation and dispatch.
+
+Both ops validate their operands the same way whatever the device, so the
+plain version and the CUDA kernel reject malformed input alike.  CPU tensors
+go to :mod:`.ref`, CUDA tensors to the kernels in :mod:`.cuda`.  Unlike the
+Pallas wrappers these need no padding: the kernels cover ragged row counts
+and widths themselves.
+"""
+from __future__ import annotations
+
+import torch
+
+from .. import use_kernel
+from . import cuda
+from .ref import combine_rows_ref, gather_rows_ref
+
+_INDEX = (torch.int32, torch.int64)
+
+
+def pack(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """K5: ``out[i] = x[idx[i]]``; pad indices point at a zero row that the
+    caller appended to ``x``."""
+    if x.dim() != 2 or idx.dim() != 1 or idx.dtype not in _INDEX:
+        raise ValueError(f"pack: x {tuple(x.shape)} / idx {tuple(idx.shape)} "
+                         f"{idx.dtype}: expected [N, D] and an int [M]")
+    if use_kernel(x, idx):
+        return cuda.gather_rows(x.contiguous(),
+                                idx.to(torch.int32).contiguous())
+    return gather_rows_ref(x, idx)
+
+
+def combine(buf: torch.Tensor, idx: torch.Tensor,
+            w: torch.Tensor) -> torch.Tensor:
+    """K6: ``out[t] = sum_k w[t, k] * buf[idx[t, k]]`` in float32, cast to
+    ``buf``'s dtype; a gather, never a scatter-add."""
+    if (buf.dim() != 2 or idx.dim() != 2 or w.shape != idx.shape
+            or idx.dtype not in _INDEX or not w.is_floating_point()):
+        raise ValueError(
+            f"combine: buf {tuple(buf.shape)} / idx {tuple(idx.shape)} "
+            f"{idx.dtype} / w {tuple(w.shape)} {w.dtype}: expected [N, D], "
+            "an int [T, K] and a float [T, K]"
+        )
+    if use_kernel(buf, idx, w):
+        return cuda.combine_rows(buf.contiguous(),
+                                 idx.to(torch.int32).contiguous(),
+                                 w.to(torch.float32).contiguous())
+    return combine_rows_ref(buf, idx, w)

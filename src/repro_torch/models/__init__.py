@@ -1,0 +1,5 @@
+"""LM stack of the port: the MoE family with MLA attention (DeepSeek-V2)."""
+from .common import ArchConfig, Mesh
+from .lm import Model
+
+__all__ = ["ArchConfig", "Mesh", "Model"]

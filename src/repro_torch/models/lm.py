@@ -1,0 +1,186 @@
+"""Model assembly for the ``moe`` family with MLA attention (DeepSeek-V2).
+
+Ported from ``repro.models.lm``: ``Model`` with ``init_params``,
+``_positions``, ``_embed_in``, ``_logits`` and ``forward`` ->
+``_forward_moe``.  The other families (dense, vlm, ssm, hybrid, audio) and
+GQA attention are still to port (ROADMAP Queue 1 item 11) and raise
+``NotImplementedError``.
+
+The forward runs eagerly, layer by layer, on one device: attention, norms
+and projections on the whole batch, the MoE layers on the mesh's devices
+stacked as lanes (:mod:`repro_torch.models.moe`).
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from .. import resolve_device
+from ..core.cache import default_plan_cache
+from ..core.costmodel import MachineParams
+from .attention import init_mla, mla_attention
+from .blocks import init_mlp, mlp
+from .common import ArchConfig, Initializer, Mesh, rms_norm
+from .moe import MoEPlan, init_moe, make_moe_plan, moe_layer, moe_plan_for
+
+
+def _stack_slice(tree: Dict, i: int) -> Dict:
+    return {k: _stack_slice(v, i) if isinstance(v, dict) else v[i]
+            for k, v in tree.items()}
+
+
+def shared_expert_params(moe_params: Dict) -> Dict:
+    """The shared experts' ``ws_*`` weights under ``mlp``'s names."""
+    return {"w_" + k[3:]: v for k, v in moe_params.items()
+            if k.startswith("ws_")}
+
+
+class Model:
+    """``repro``'s ``Model`` for ``family == "moe"`` with MLA.
+
+    ``mesh`` (default: one lane) gives the dispatch geometry; its devices
+    are lanes stacked on ``device``.  ``machine_params`` is the cost model
+    ``moe_mode="auto"`` selects under (required for ``auto``)."""
+
+    def __init__(
+        self,
+        cfg: ArchConfig,
+        mesh: Optional[Mesh] = None,
+        moe_mode: str = "auto",
+        ep_over_pods: bool = True,
+        moe_cap_factor: float = 1.25,
+        machine_params: Optional[MachineParams] = None,
+        device=None,
+    ):
+        if cfg.family != "moe" or not cfg.mla:
+            raise NotImplementedError(
+                f"{cfg.name}: family {cfg.family!r}"
+                f"{'' if cfg.mla else ' without MLA'} is not ported yet; "
+                "the port serves the moe family with MLA attention "
+                "(ROADMAP Queue 1 item 11)")
+        if moe_mode == "auto" and machine_params is None:
+            raise ValueError("moe_mode='auto' needs machine_params")
+        self.cfg = cfg
+        self.mesh = mesh if mesh is not None else Mesh()
+        self.moe_mode = moe_mode
+        self.ep_over_pods = ep_over_pods
+        self.moe_cap_factor = moe_cap_factor
+        self.machine_params = machine_params
+        self.device = resolve_device(device)
+        self.batch_axes = tuple(a for a in ("pod", "data")
+                                if a in self.mesh.axes)
+        self.e_phys = self._probe_plan().e_phys
+
+    def _probe_plan(self, tokens_per_lane: int = 8) -> MoEPlan:
+        """Geometry-only plan (e_phys does not depend on the transport, so
+        ``auto`` probes with the flat-a2a geometry)."""
+        return make_moe_plan(
+            self.cfg, self.mesh, tokens_per_lane,
+            mode=("a2a" if self.moe_mode == "auto" else self.moe_mode),
+            ep_over_pods=self.ep_over_pods,
+        )
+
+    # ------------------------------------------------------------------ init
+
+    def init_params(self, seed: int = 0) -> Dict:
+        """Weights drawn on the model's device from a seeded generator."""
+        cfg = self.cfg
+        init = Initializer(seed, cfg.dtype, self.device)
+        p: Dict[str, Any] = {
+            "embed": init.tensor((cfg.vocab, cfg.d_model), fan_in=cfg.d_model),
+            "final_norm": init.tensor((cfg.d_model,), zero=True),
+        }
+        if not cfg.tie_embeddings:
+            p["lm_head"] = init.tensor((cfg.d_model, cfg.vocab),
+                                       fan_in=cfg.d_model)
+        L = cfg.n_layers - cfg.first_dense_layers
+        p["blocks"] = {
+            "ln1": init.tensor((L, cfg.d_model), zero=True),
+            "ln2": init.tensor((L, cfg.d_model), zero=True),
+            "attn": init_mla(init, cfg, L),
+            "moe": init_moe(init, cfg, L, self.e_phys),
+        }
+        if cfg.first_dense_layers:
+            n0 = cfg.first_dense_layers
+            p["dense0"] = {
+                "ln1": init.tensor((n0, cfg.d_model), zero=True),
+                "ln2": init.tensor((n0, cfg.d_model), zero=True),
+                "attn": init_mla(init, cfg, n0),
+                "mlp": init_mlp(init, cfg.d_model, cfg.d_ff, n0,
+                                gated=cfg.gated_mlp),
+            }
+        return p
+
+    # -------------------------------------------------------------- forward
+
+    def _positions(self, inputs: Dict, T: int, B: int) -> torch.Tensor:
+        if "positions" in inputs:
+            return inputs["positions"]
+        return torch.arange(T, dtype=torch.int32,
+                            device=self.device).expand(B, T)
+
+    def _embed_in(self, params: Dict, inputs: Dict) -> torch.Tensor:
+        x = params["embed"][inputs["tokens"].long()]
+        return x * torch.tensor(math.sqrt(self.cfg.d_model), dtype=x.dtype,
+                                device=x.device)
+
+    def _logits(self, params: Dict, x: torch.Tensor) -> torch.Tensor:
+        head = (params["embed"].T if self.cfg.tie_embeddings
+                else params["lm_head"])
+        return x @ head.to(x.dtype)
+
+    def dense_layer(self, p_l: Dict, x: torch.Tensor, pos: torch.Tensor,
+                    cache=None, kv_len=None):
+        """One leading dense layer (MLA + gated MLP): (x, new cache)."""
+        a, c = mla_attention(p_l["attn"], rms_norm(x, p_l["ln1"]), pos,
+                             self.cfg, cache=cache, kv_len=kv_len)
+        x = x + a
+        return x + mlp(p_l["mlp"], rms_norm(x, p_l["ln2"]), self.cfg.act), c
+
+    def moe_block(self, p_l: Dict, x: torch.Tensor, pos: torch.Tensor,
+                  plan: MoEPlan, cache=None, kv_len=None):
+        """One MLA + MoE layer (routed experts dispatched by ``plan``, plus
+        the shared experts): (x, new cache, router aux loss)."""
+        cfg = self.cfg
+        a, c = mla_attention(p_l["attn"], rms_norm(x, p_l["ln1"]), pos, cfg,
+                             cache=cache, kv_len=kv_len)
+        x = x + a
+        h = rms_norm(x, p_l["ln2"])
+        y, aux, _dropped = moe_layer(h, p_l["moe"], plan, cfg, self.mesh,
+                                     self.batch_axes,
+                                     cache=default_plan_cache())
+        if cfg.n_shared_experts:
+            y = y + mlp(shared_expert_params(p_l["moe"]), h, cfg.act)
+        return x + y, c, aux
+
+    def forward(self, params: Dict,
+                inputs: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``inputs``: {"tokens": [B, S]} (and optionally "positions").
+        Returns (logits [B, S, V], aux loss)."""
+        B, T = inputs["tokens"].shape
+        x = self._embed_in(params, inputs)
+        pos = self._positions(inputs, T, B)
+        x, aux = self._forward_moe(params, x, pos)
+        return self._logits(params, rms_norm(x, params["final_norm"])), aux
+
+    def _forward_moe(self, params: Dict, x: torch.Tensor,
+                     pos: torch.Tensor):
+        cfg = self.cfg
+        B, T = x.shape[0], x.shape[1]
+        axes = self.mesh.axes
+        n_bdev = max(1, math.prod(axes[a] for a in self.batch_axes))
+        plan = moe_plan_for(
+            cfg, self.mesh, max(1, B * T // n_bdev // axes["model"]),
+            mode=self.moe_mode, ep_over_pods=self.ep_over_pods,
+            cap_factor=self.moe_cap_factor, params=self.machine_params,
+        )
+        for i in range(cfg.first_dense_layers):
+            x, _ = self.dense_layer(_stack_slice(params["dense0"], i), x, pos)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for i in range(cfg.n_layers - cfg.first_dense_layers):
+            x, _, aux_l = self.moe_block(_stack_slice(params["blocks"], i),
+                                         x, pos, plan)
+            aux = aux + aux_l
+        return x, aux * cfg.router_aux_coef

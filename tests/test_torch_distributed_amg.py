@@ -19,7 +19,7 @@ import sys
 import numpy as np
 import pytest
 
-pytest.importorskip("torch")
+torch = pytest.importorskip("torch")
 
 from repro.amg import build_hierarchy, diffusion_2d, solve
 from repro.core.costmodel import TPU_V5E
@@ -29,6 +29,16 @@ from repro_torch.core import PlanCache
 SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
 HIST = dict(rtol=1e-8, atol=1e-15)
 ITERS = 8
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for these small CPU tensors, so that parallel
+    test workers do not oversubscribe the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _port_hierarchy(h):

@@ -1,8 +1,11 @@
 """The port imports neither JAX nor the JAX package.
 
-A fresh interpreter imports every module of ``repro_torch`` and reports the
-modules then loaded; none may be ``jax*`` or ``repro`` / ``repro.*``.
+A fresh interpreter imports every module of ``repro_torch`` and
+``chip_smoke.py`` and reports the modules then loaded; none may be
+``jax*`` or ``repro`` / ``repro.*``.  ``chip_smoke.py`` imports lazily,
+inside its phases, so its import statements are also read from its source.
 """
+import ast
 import json
 import os
 import pathlib
@@ -13,10 +16,12 @@ import pytest
 
 pytest.importorskip("torch")
 
-SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+SRC = ROOT / "src"
 
 PROBE = """
 import importlib, json, pkgutil, sys
+import chip_smoke
 import repro_torch
 names = ["repro_torch"]
 for info in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
@@ -28,7 +33,8 @@ print(json.dumps({"imported": names, "loaded": sorted(sys.modules)}))
 
 def test_port_imports_no_jax_and_no_reference_package():
     env = dict(os.environ)
-    env["PYTHONPATH"] = str(SRC) + os.pathsep + env.get("PYTHONPATH", "")
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(SRC), str(ROOT), env.get("PYTHONPATH", "")])
     out = subprocess.run([sys.executable, "-c", PROBE], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
@@ -36,9 +42,34 @@ def test_port_imports_no_jax_and_no_reference_package():
     # every subpackage of the slice was imported
     for mod in ("repro_torch.amg.distributed", "repro_torch.core.cache",
                 "repro_torch.kernels.spmv_ell.cuda",
-                "repro_torch.sparse.device", "repro_torch.obs.spans"):
+                "repro_torch.sparse.device", "repro_torch.obs.spans",
+                "repro_torch.kernels.build",
+                "repro_torch.kernels.moe_pack.cuda",
+                "repro_torch.kernels.flash_attention.cuda",
+                "repro_torch.core.dynexchange", "repro_torch.configs",
+                "repro_torch.configs.deepseek_v2_lite_16b",
+                "repro_torch.models.common", "repro_torch.models.attention",
+                "repro_torch.models.blocks", "repro_torch.models.moe",
+                "repro_torch.models.lm", "repro_torch.models.convert",
+                "repro_torch.models.serving", "repro_torch.serve.engine"):
         assert mod in report["imported"]
-    bad = [m for m in report["loaded"]
-           if m == "jax" or m.startswith(("jax.", "jaxlib"))
-           or m == "repro" or m.startswith("repro.")]
-    assert bad == []
+    assert "chip_smoke" in report["loaded"]
+    assert [m for m in report["loaded"] if _reference(m)] == []
+
+
+def _reference(module: str) -> bool:
+    top = module.split(".")[0]
+    return top in ("jax", "jaxlib", "repro")
+
+
+def test_chip_smoke_imports_no_jax_and_no_reference_package():
+    """Every import statement of chip_smoke.py, at any depth."""
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module)
+    assert "repro_torch.serve" in names and "torch" in names
+    assert [n for n in names if _reference(n)] == []

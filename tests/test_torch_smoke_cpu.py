@@ -1,6 +1,6 @@
-"""``chip_smoke.run`` rehearsed on the CPU at a tiny size.
+"""``chip_smoke`` rehearsed on the CPU at a tiny size.
 
-On the card it builds the kernels and drives the main path; here its whole
+On the card it builds the kernels and drives the main paths; here its whole
 control flow runs on the CPU with the plain versions (no kernel launches,
 so no device numbers), so that a change to the port that breaks the chip
 smoke shows up before a chip run.
@@ -10,17 +10,32 @@ import sys
 
 import pytest
 
-pytest.importorskip("torch")
+torch = pytest.importorskip("torch")
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 
-def test_chip_smoke_phases_run_on_cpu():
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for these small CPU tensors, so that parallel
+    test workers do not oversubscribe the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def _chip_smoke():
     sys.path.insert(0, str(ROOT))
     try:
         import chip_smoke
     finally:
         sys.path.remove(str(ROOT))
+    return chip_smoke
+
+
+def test_chip_smoke_phases_run_on_cpu():
+    chip_smoke = _chip_smoke()
     res = chip_smoke.run("cpu", rows=4096, block_cols=16, v_cycles=2)
     assert set(res["kernels"]) == {
         "spmv_ell", "spmv_ell_blocked", "spmv_ell_blocked_partial",
@@ -32,3 +47,29 @@ def test_chip_smoke_phases_run_on_cpu():
     assert set(res["solves"]) == set(chip_smoke.SOLVES)
     assert all(n == 0 for n in res["launches"].values())   # no card
 
+
+def test_chip_smoke_serve_phase_runs_on_cpu():
+    """The serve phase at the reduced DeepSeek-V2-Lite config: every mode
+    serves all requests, the plain-version replay and the ample-capacity
+    modes agree, the replay refuses both planted faults, and every K5-K7
+    path call and edge case is checked."""
+    chip_smoke = _chip_smoke()
+    res = chip_smoke.serve_run("cpu", reduced_config=True)
+    assert set(res["modes"]) == set(chip_smoke.SERVE_MODES)
+    sizes = chip_smoke.serve_sizes(False)
+    for mode, rec in res["modes"].items():
+        assert sorted(len(t) for t in rec["tokens"].values()) == \
+            sorted(sizes["new"])
+        assert rec["oracle_rel_err"] == 0.0       # the plain version itself
+        assert rec["prefills"] >= 2 and rec["decode_steps"] > 0
+    assert res["modes"]["auto"]["decode_mode"] in ("a2a", "hier",
+                                                  "hier_dedup")
+    planted = res["modes"][chip_smoke.SERVE_MODES[0]]["planted"]
+    assert len(planted) == 2
+    for got in planted.values():
+        assert got["rel_err"] > chip_smoke.LOGIT_TOL or got["differ"] > 0
+    assert set(res["kernels"]) == set(chip_smoke.SERVE_SOURCES)
+    for rec in res["kernels"].values():
+        assert rec["max_abs_err"] == 0.0 and rec["checked"] > 0
+        assert rec["bound_ms"] > 0.0 and "decode" in rec
+    assert all(n == 0 for n in res["launches"].values())   # no card

@@ -30,6 +30,16 @@ TOL = dict(rtol=1e-12, atol=1e-12)
 P = 2
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for these small CPU tensors, so that parallel
+    test workers do not oversubscribe the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def pallas64(fn, *args, **kw):
     """Run a Pallas kernel in interpret mode with float64 enabled."""
     with jax.enable_x64(True):
