@@ -1,7 +1,8 @@
 """repro_torch: the PyTorch/CUDA port of ``repro``.
 
-Ported so far: the distributed AMG solve (``sparse``, ``amg``, ``core``)
-and MoE serving of DeepSeek-V2-Lite (``models``, ``serve``, ``configs``).
+Ported so far: the distributed AMG solve (``sparse``, ``amg``, ``core``),
+MoE serving of DeepSeek-V2-Lite and serving of the Mamba-2 SSM and Zamba2
+hybrid families (``models``, ``serve``, ``configs``).
 The package mirrors ``repro``'s subpackages and public names, so a parity
 test can call both sides with the same arguments.  It imports ``torch`` and
 ``numpy`` only.  Host planning is numpy; vectors, plans' index arrays, ELL

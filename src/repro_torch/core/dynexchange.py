@@ -2,7 +2,7 @@
 
 Ported from ``repro.core.dynexchange`` (``DiscoveryStats``,
 ``SparseDynamicExchange.push_pattern``; the pull-side ``discover`` and the
-payload ``push`` are still to port, ROADMAP Queue 1 item 9).  Every rank
+payload ``push`` are still to port, ROADMAP Queue 1 item 4).  Every rank
 contributes a length-``P`` vector of per-destination counts; one
 allreduce(sum) of the ``P x P`` matrix tells each rank who will push to it,
 and the result is a :class:`~repro_torch.core.plan.CommPattern` that the

@@ -26,6 +26,7 @@ LAUNCHES: Dict[str, int] = {
     "gather_rows": 0,
     "combine_rows": 0,
     "flash_attention_bh": 0,
+    "ssd_scan_h": 0,
 }
 
 

@@ -1,15 +1,21 @@
-"""DeepSeek-style MLA attention (compressed KV cache with decoupled RoPE).
+"""Attention: standard GQA and DeepSeek-style MLA (compressed KV cache with
+decoupled RoPE).
 
-Ported from ``repro.models.attention`` (``init_mla``, ``mla_attention``);
-GQA and cross-attention are still to port (ROADMAP Queue 1 item 11).  The
-attention itself runs through K7 (:mod:`repro_torch.kernels.flash_attention`).
+Ported from ``repro.models.attention`` (``init_gqa``, ``gqa_project_qkv``,
+``gqa_project_out``, ``gqa_attention``, ``init_mla``, ``mla_attention``).
+Qwen-style ``qkv_bias`` / ``qk_norm``, M-RoPE and cross-attention
+(``kv_x``, ``gqa_cross_from_cache``, ``project_cross_kv``) are still to port
+(ROADMAP Queue 1 item 6) and raise ``NotImplementedError``.  The attention
+itself runs through K7 (:mod:`repro_torch.kernels.flash_attention`), always
+by this module's ``flash``: the serving and hybrid call sites go through
+it too, so that binding ``attention.flash`` reaches every K7 call.
 
 Cache contract (as in ``repro``): without a cache the call attends over its
-own T tokens; with a compressed cache ``[B, S, kv_lora + rope]`` the new
-entries are written at ``kv_len`` and the kernel masks keys at or past
-``kv_len + T``.  Unlike ``jax.lax.dynamic_update_slice`` the port writes the
-new entries into the given cache in place (no second S-long cache per
-layer) and returns that same tensor.
+own T tokens; with a cache the new entries are written at ``kv_len`` and
+the kernel masks keys at or past ``kv_len + T``.  Unlike
+``jax.lax.dynamic_update_slice`` the port writes the new entries into the
+given cache in place (no second S-long cache per layer) and returns that
+same tensor.
 """
 from __future__ import annotations
 
@@ -20,6 +26,99 @@ import torch.nn.functional as tf
 
 from ..kernels.flash_attention import attention as flash
 from .common import ArchConfig, Initializer, apply_rope, rms_norm
+
+
+# ---------------------------------------------------------------------------
+# standard GQA
+# ---------------------------------------------------------------------------
+
+
+def _check_gqa(cfg: ArchConfig) -> None:
+    if cfg.qkv_bias or cfg.qk_norm or cfg.mrope_sections is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: GQA with qkv_bias / qk_norm / M-RoPE is not ported "
+            "yet (ROADMAP Queue 1 item 6)")
+
+
+def init_gqa(init: Initializer, cfg: ArchConfig, L: int,
+             d_in: int = 0) -> Dict:
+    _check_gqa(cfg)
+    d = d_in or cfg.d_model
+    dh = cfg.head_dim
+    return {
+        "wq": init.tensor((L, d, cfg.n_heads * dh), fan_in=d),
+        "wk": init.tensor((L, d, cfg.n_kv_heads * dh), fan_in=d),
+        "wv": init.tensor((L, d, cfg.n_kv_heads * dh), fan_in=d),
+        "wo": init.tensor((L, cfg.n_heads * dh, cfg.d_model),
+                          fan_in=cfg.n_heads * dh),
+    }
+
+
+def gqa_project_qkv(
+    p: Dict,
+    x: torch.Tensor,               # [B, T, d]
+    positions: torch.Tensor,       # [B, T]
+    cfg: ArchConfig,
+    rope: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Project and rope q / k / v -> [B, H(q|kv), T, dh]."""
+    _check_gqa(cfg)
+    B, T, _ = x.shape
+    dh = cfg.head_dim
+    q = (x @ p["wq"]).reshape(B, T, cfg.n_heads, dh).transpose(1, 2)
+    k = (x @ p["wk"]).reshape(B, T, cfg.n_kv_heads, dh).transpose(1, 2)
+    v = (x @ p["wv"]).reshape(B, T, cfg.n_kv_heads, dh).transpose(1, 2)
+    if rope:
+        q = apply_rope(q, positions, cfg.rope_theta, cfg.partial_rotary)
+        k = apply_rope(k, positions, cfg.rope_theta, cfg.partial_rotary)
+    return q, k, v
+
+
+def gqa_project_out(p: Dict, o: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """o: [B, Hq, T, dh] -> [B, T, d]."""
+    B, H, T, dh = o.shape
+    return o.transpose(1, 2).reshape(B, T, H * dh) @ p["wo"]
+
+
+def write_cache(cache: torch.Tensor, new: torch.Tensor, start: int) -> None:
+    """Write ``new`` [B, H, T, dh] into ``cache`` [B, H, S, dh] at slot
+    ``start``, in place."""
+    T = new.shape[2]
+    if not 0 <= start <= cache.shape[2] - T:
+        raise ValueError(f"{T} cache entries at {start} do not fit a cache "
+                         f"of {cache.shape[2]}")
+    cache[:, :, start:start + T] = new.to(cache.dtype)
+
+
+def gqa_attention(
+    p: Dict,                       # single-layer slice of init_gqa params
+    x: torch.Tensor,               # [B, T, d]
+    positions: torch.Tensor,       # [B, T]
+    cfg: ArchConfig,
+    window: int = 0,
+    cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,  # [B,Hkv,S,dh]
+    kv_len: Optional[int] = None,  # filled entries
+) -> Tuple[torch.Tensor, Optional[Tuple[torch.Tensor, torch.Tensor]]]:
+    T = x.shape[1]
+    q, k, v = gqa_project_qkv(p, x, positions, cfg)
+    new_cache = None
+    if cache is not None:
+        ck, cv = cache
+        start = int(kv_len) if kv_len is not None else 0
+        write_cache(ck, k, start)
+        write_cache(cv, v, start)
+        new_cache = (ck, cv)
+        out = flash(q, ck, cv, causal=True, window=window, kv_len=start + T,
+                    q_offset=start)
+    else:
+        out = flash(q, k, v, causal=True, window=window, kv_len=T,
+                    q_offset=0)
+    return gqa_project_out(p, out, cfg), new_cache
+
+
+# ---------------------------------------------------------------------------
+# MLA
+# ---------------------------------------------------------------------------
 
 
 def init_mla(init: Initializer, cfg: ArchConfig, L: int) -> Dict:

@@ -1,6 +1,6 @@
 """The gated MLP shared by DeepSeek's leading dense layer and its shared
 experts (ported from ``repro.models.blocks``: ``init_mlp``, ``mlp``).
-``dense_block`` is still to port (ROADMAP Queue 1 item 11)."""
+``dense_block`` is still to port (ROADMAP Queue 1 item 6)."""
 from __future__ import annotations
 
 from typing import Dict

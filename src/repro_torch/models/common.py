@@ -87,6 +87,14 @@ class ArchConfig:
             return self.d_head
         return self.d_model // self.n_heads if self.n_heads else 0
 
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def n_ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim
+
 
 @dataclass(frozen=True)
 class Mesh:

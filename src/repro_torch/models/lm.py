@@ -1,14 +1,16 @@
-"""Model assembly for the ``moe`` family with MLA attention (DeepSeek-V2).
+"""Model assembly for the ``moe`` family with MLA attention (DeepSeek-V2),
+the ``ssm`` family (Mamba-2) and the ``hybrid`` family (Zamba2).
 
 Ported from ``repro.models.lm``: ``Model`` with ``init_params``,
 ``_positions``, ``_embed_in``, ``_logits`` and ``forward`` ->
-``_forward_moe``.  The other families (dense, vlm, ssm, hybrid, audio) and
-GQA attention are still to port (ROADMAP Queue 1 item 11) and raise
-``NotImplementedError``.
+``_forward_moe`` / the SSM layer loop / ``_forward_hybrid`` (with
+``_shared_attn_block``).  The other families (dense, vlm, audio) and the
+moe family with GQA attention are still to port (ROADMAP Queue 1 item 6)
+and raise ``NotImplementedError``.
 
-The forward runs eagerly, layer by layer, on one device: attention, norms
-and projections on the whole batch, the MoE layers on the mesh's devices
-stacked as lanes (:mod:`repro_torch.models.moe`).
+The forward runs eagerly, layer by layer, on one device: attention, norms,
+projections and SSM blocks on the whole batch, the MoE layers on the mesh's
+devices stacked as lanes (:mod:`repro_torch.models.moe`).
 """
 from __future__ import annotations
 
@@ -20,10 +22,18 @@ import torch
 from .. import resolve_device
 from ..core.cache import default_plan_cache
 from ..core.costmodel import MachineParams
-from .attention import init_mla, mla_attention
+from . import attention
+from .attention import (
+    gqa_project_out,
+    gqa_project_qkv,
+    init_gqa,
+    init_mla,
+    mla_attention,
+)
 from .blocks import init_mlp, mlp
 from .common import ArchConfig, Initializer, Mesh, rms_norm
 from .moe import MoEPlan, init_moe, make_moe_plan, moe_layer, moe_plan_for
+from .ssm import init_mamba, mamba_block
 
 
 def _stack_slice(tree: Dict, i: int) -> Dict:
@@ -38,11 +48,13 @@ def shared_expert_params(moe_params: Dict) -> Dict:
 
 
 class Model:
-    """``repro``'s ``Model`` for ``family == "moe"`` with MLA.
+    """``repro``'s ``Model`` for the ``moe`` family with MLA and the ``ssm``
+    and ``hybrid`` families.
 
-    ``mesh`` (default: one lane) gives the dispatch geometry; its devices
-    are lanes stacked on ``device``.  ``machine_params`` is the cost model
-    ``moe_mode="auto"`` selects under (required for ``auto``)."""
+    ``mesh`` (default: one lane) gives the MoE dispatch geometry; its
+    devices are lanes stacked on ``device``.  ``machine_params`` is the
+    cost model ``moe_mode="auto"`` selects under (required for ``auto`` in
+    the moe family; the other families dispatch nothing)."""
 
     def __init__(
         self,
@@ -54,13 +66,14 @@ class Model:
         machine_params: Optional[MachineParams] = None,
         device=None,
     ):
-        if cfg.family != "moe" or not cfg.mla:
+        moe = cfg.family == "moe"
+        if not ((moe and cfg.mla) or cfg.family in ("ssm", "hybrid")):
             raise NotImplementedError(
                 f"{cfg.name}: family {cfg.family!r}"
-                f"{'' if cfg.mla else ' without MLA'} is not ported yet; "
-                "the port serves the moe family with MLA attention "
-                "(ROADMAP Queue 1 item 11)")
-        if moe_mode == "auto" and machine_params is None:
+                f"{' without MLA' if moe else ''} is not ported yet; the "
+                "port runs the moe family with MLA attention, ssm and hybrid "
+                "(ROADMAP Queue 1 item 6)")
+        if moe and moe_mode == "auto" and machine_params is None:
             raise ValueError("moe_mode='auto' needs machine_params")
         self.cfg = cfg
         self.mesh = mesh if mesh is not None else Mesh()
@@ -71,7 +84,7 @@ class Model:
         self.device = resolve_device(device)
         self.batch_axes = tuple(a for a in ("pod", "data")
                                 if a in self.mesh.axes)
-        self.e_phys = self._probe_plan().e_phys
+        self.e_phys = self._probe_plan().e_phys if moe else 0
 
     def _probe_plan(self, tokens_per_lane: int = 8) -> MoEPlan:
         """Geometry-only plan (e_phys does not depend on the transport, so
@@ -95,6 +108,23 @@ class Model:
         if not cfg.tie_embeddings:
             p["lm_head"] = init.tensor((cfg.d_model, cfg.vocab),
                                        fan_in=cfg.d_model)
+        if cfg.family == "ssm":
+            p["blocks"] = init_mamba(init, cfg, cfg.n_layers)
+            return p
+        if cfg.family == "hybrid":
+            per = cfg.shared_attn_period
+            n_main = cfg.n_layers // per * per
+            nsb, d = cfg.n_shared_attn_blocks, cfg.d_model
+            p["mamba_main"] = init_mamba(init, cfg, n_main)
+            p["mamba_tail"] = (init_mamba(init, cfg, cfg.n_layers - n_main)
+                               if cfg.n_layers > n_main else {})
+            p["shared"] = {
+                "ln1": init.tensor((nsb, 2 * d), zero=True),
+                "attn": init_gqa(init, cfg, nsb, d_in=2 * d),
+                "ln2": init.tensor((nsb, d), zero=True),
+                "mlp": init_mlp(init, d, cfg.d_ff, nsb),
+            }
+            return p
         L = cfg.n_layers - cfg.first_dense_layers
         p["blocks"] = {
             "ln1": init.tensor((L, cfg.d_model), zero=True),
@@ -162,7 +192,15 @@ class Model:
         B, T = inputs["tokens"].shape
         x = self._embed_in(params, inputs)
         pos = self._positions(inputs, T, B)
-        x, aux = self._forward_moe(params, x, pos)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        if self.cfg.family == "moe":
+            x, aux = self._forward_moe(params, x, pos)
+        elif self.cfg.family == "ssm":
+            for i in range(self.cfg.n_layers):
+                x, _ = mamba_block(_stack_slice(params["blocks"], i), x,
+                                   self.cfg)
+        else:
+            x = self._forward_hybrid(params, x, pos)
         return self._logits(params, rms_norm(x, params["final_norm"])), aux
 
     def _forward_moe(self, params: Dict, x: torch.Tensor,
@@ -184,3 +222,38 @@ class Model:
                                          x, pos, plan)
             aux = aux + aux_l
         return x, aux * cfg.router_aux_coef
+
+    def shared_block(self, params: Dict, seg: int) -> Dict:
+        """The shared attention block segment ``seg`` applies (the blocks
+        alternate)."""
+        return _stack_slice(params["shared"],
+                            seg % self.cfg.n_shared_attn_blocks)
+
+    def _shared_attn_block(self, p_s: Dict, x: torch.Tensor,
+                           x0: torch.Tensor, pos: torch.Tensor):
+        """zamba2's shared block: attention over concat(x, x0), then an
+        MLP."""
+        cfg = self.cfg
+        h = rms_norm(torch.cat([x, x0], dim=-1), p_s["ln1"])
+        q, k, v = gqa_project_qkv(p_s["attn"], h, pos, cfg)
+        o = attention.flash(q, k, v, causal=True)
+        x = x + gqa_project_out(p_s["attn"], o, cfg)
+        return x + mlp(p_s["mlp"], rms_norm(x, p_s["ln2"]), cfg.act)
+
+    def _forward_hybrid(self, params: Dict, x: torch.Tensor,
+                        pos: torch.Tensor) -> torch.Tensor:
+        """(shared_attn_period Mamba-2 layers -> a shared attention block)
+        segments, then the tail layers."""
+        cfg = self.cfg
+        per = cfg.shared_attn_period
+        n_seg = cfg.n_layers // per
+        x0 = x
+        for seg in range(n_seg):
+            for j in range(per):
+                x, _ = mamba_block(
+                    _stack_slice(params["mamba_main"], seg * per + j), x, cfg)
+            x = self._shared_attn_block(self.shared_block(params, seg), x,
+                                        x0, pos)
+        for j in range(cfg.n_layers - n_seg * per):
+            x, _ = mamba_block(_stack_slice(params["mamba_tail"], j), x, cfg)
+        return x

@@ -1,29 +1,40 @@
-"""Serving: prefill and single-token decode for the ``moe`` family with MLA.
+"""Serving: prefill and single-token decode for the ``moe`` family with MLA
+and the ``ssm`` and ``hybrid`` families.
 
-Ported from ``repro.models.serving`` (``moe_tokens_per_lane``,
-``moe_plan_for_model``, ``prefill``, ``decode_step``; ``_moe_ffn`` is
-:meth:`repro_torch.models.lm.Model.moe_block`, shared with the training
-forward); the other families and ``moe_exchange_probe`` are still to port
-(ROADMAP Queue 1 item 11).  The forward is a Python loop over layers; the
-plan is looked up once per call, not once per layer.
+Ported from ``repro.models.serving`` (``_prefill_attn``, ``_decode_attn``,
+``moe_tokens_per_lane``, ``moe_plan_for_model``, ``prefill``,
+``decode_step``; ``_moe_ffn`` is :meth:`repro_torch.models.lm.Model.moe_block`,
+shared with the training forward); the other families and
+``moe_exchange_probe`` are still to port (ROADMAP Queue 1 item 6).  The
+forward is a Python loop over layers; the MoE plan is looked up once per
+call, not once per layer.
 
-Cache invariants (MLA): each layer keeps a compressed cache
+Cache invariants.  MLA: each layer keeps a compressed cache
 ``[B, max_len, kv_lora + rope]``; slots ``[0, cur_len)`` hold the tokens so
-far, K's rope part stored post-RoPE at its true position.  Attention masks
-with ``kv_len = cur_len + T`` and ``q_offset = cur_len``.  ``decode_step``
-writes the new token's entry into the caches it is given, in place, and
-returns them.
+far, K's rope part stored post-RoPE at its true position; attention masks
+with ``kv_len = cur_len + T`` and ``q_offset = cur_len``.  GQA (the hybrid's
+shared blocks): ``{"k", "v"}`` of ``[B, Hkv, Lc, dh]``, ``Lc`` the window or
+``max_len``; slots ``[0, filled)`` hold the most recent ``filled =
+min(cur_len, Lc)`` tokens in order, K post-RoPE at its true position;
+attention masks with ``kv_len = filled`` and ``q_offset = filled - 1``.
+Mamba-2 layers keep ``{"conv", "ssm"}`` (:func:`~.ssm.init_mamba_state`).
+``decode_step`` writes the new token's attention entries into the caches it
+is given, in place, and returns them with the new SSM states.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import torch
 
+from . import attention
+from .attention import gqa_project_out, gqa_project_qkv, write_cache
+from .blocks import mlp
 from .common import rms_norm
 from .lm import Model, _stack_slice
 from .moe import moe_plan_for
+from .ssm import mamba_block
 
 
 def moe_tokens_per_lane(model: Model, n_tokens: int) -> int:
@@ -46,10 +57,110 @@ def moe_plan_for_model(model: Model, n_tokens: int, cache=None):
     )
 
 
-def _empty_cache(model: Model, B: int, max_len: int) -> torch.Tensor:
+# ---------------------------------------------------------------------------
+# GQA cache ops
+# ---------------------------------------------------------------------------
+
+
+def _prefill_attn(p_l: Dict, x: torch.Tensor, pos: torch.Tensor, cfg,
+                  window: int, max_len: int):
+    """Full-sequence attention; returns (out, {"k", "v"} caches of
+    ``Lc = window or max_len`` slots holding the last min(T, Lc) tokens)."""
+    T = x.shape[1]
+    q, k, v = gqa_project_qkv(p_l, x, pos, cfg)
+    o = attention.flash(q, k, v, causal=True, window=window)
+    out = gqa_project_out(p_l, o, cfg)
+    Lc = window if window > 0 else max_len
+    if T >= Lc:
+        return out, {"k": k[:, :, T - Lc:].contiguous(),
+                     "v": v[:, :, T - Lc:].contiguous()}
+    B, Hkv, _, dh = k.shape
+    cache = {}
+    for name, new in (("k", k), ("v", v)):
+        cache[name] = torch.zeros((B, Hkv, Lc, dh), dtype=new.dtype,
+                                  device=new.device)
+        write_cache(cache[name], new, 0)
+    return out, cache
+
+
+def _decode_attn(p_l: Dict, x: torch.Tensor, cur: int, cfg, window: int,
+                 cache: Dict):
+    """One-token attention against a rolling cache: the new entry is
+    appended at slot ``cur`` or, once the cache is full (``cur >= Lc``),
+    the cache rolls one slot left and takes it in its last slot; both in
+    place."""
+    B = x.shape[0]
+    pos = torch.full((B, 1), cur, dtype=torch.int32, device=x.device)
+    q, k, v = gqa_project_qkv(p_l, x, pos, cfg)   # k roped at its true pos
+    ck, cv = cache["k"], cache["v"]
+    Lc = ck.shape[2]
+    for c, new in ((ck, k), (cv, v)):
+        if cur >= Lc:
+            c[:, :, :-1] = c[:, :, 1:].clone()
+            write_cache(c, new, Lc - 1)
+        else:
+            write_cache(c, new, cur)
+    filled = min(cur + 1, Lc)
+    o = attention.flash(q, ck, cv, causal=True, kv_len=filled,
+                        q_offset=filled - 1)
+    return gqa_project_out(p_l, o, cfg), {"k": ck, "v": cv}
+
+
+# ---------------------------------------------------------------------------
+# prefill
+# ---------------------------------------------------------------------------
+
+
+def _empty_mla_cache(model: Model, B: int, max_len: int) -> torch.Tensor:
     cfg = model.cfg
     return torch.zeros((B, max_len, cfg.kv_lora + cfg.qk_rope_dim),
                        dtype=cfg.dtype, device=model.device)
+
+
+def _prefill_moe(model: Model, params: Dict, x, pos, max_len: int,
+                 moe_plan) -> Tuple[torch.Tensor, List]:
+    B, T = x.shape[:2]
+    caches = []
+    for i in range(model.cfg.first_dense_layers):
+        x, ckv = model.dense_layer(_stack_slice(params["dense0"], i), x, pos,
+                                   cache=_empty_mla_cache(model, B, max_len),
+                                   kv_len=0)
+        caches.append({"ckv": ckv})
+    plan = moe_plan if moe_plan is not None \
+        else moe_plan_for_model(model, B * T)
+    for i in range(model.cfg.n_layers - model.cfg.first_dense_layers):
+        x, ckv, _ = model.moe_block(_stack_slice(params["blocks"], i), x,
+                                    pos, plan,
+                                    cache=_empty_mla_cache(model, B, max_len),
+                                    kv_len=0)
+        caches.append({"ckv": ckv})
+    return x, caches
+
+
+def _prefill_hybrid(model: Model, params: Dict, x, pos,
+                    max_len: int) -> Tuple[torch.Tensor, List]:
+    cfg = model.cfg
+    per = cfg.shared_attn_period
+    n_seg = cfg.n_layers // per
+    x0 = x
+    caches = []
+    for seg in range(n_seg):
+        for j in range(per):
+            x, st = mamba_block(
+                _stack_slice(params["mamba_main"], seg * per + j), x, cfg,
+                return_state=True)
+            caches.append(st)
+        sb = model.shared_block(params, seg)
+        h = rms_norm(torch.cat([x, x0], dim=-1), sb["ln1"])
+        a, c = _prefill_attn(sb["attn"], h, pos, cfg, 0, max_len)
+        x = x + a
+        x = x + mlp(sb["mlp"], rms_norm(x, sb["ln2"]), cfg.act)
+        caches.append(c)
+    for j in range(cfg.n_layers - n_seg * per):
+        x, st = mamba_block(_stack_slice(params["mamba_tail"], j), x, cfg,
+                            return_state=True)
+        caches.append(st)
+    return x, caches
 
 
 def prefill(model: Model, params: Dict, inputs: Dict, max_len: int,
@@ -58,35 +169,33 @@ def prefill(model: Model, params: Dict, inputs: Dict, max_len: int,
 
     ``moe_plan`` pins the MoE dispatch plan instead of the per-(B*T) cached
     one: ``serve.engine`` plans prefill dispatch once for the worst case
-    (B * max_len tokens)."""
+    (B * max_len tokens).  The other families ignore it."""
+    cfg = model.cfg
     x = model._embed_in(params, inputs)
     B, T = x.shape[:2]
     pos = model._positions(inputs, T, B)
-    caches = []
-    for i in range(model.cfg.first_dense_layers):
-        x, ckv = model.dense_layer(_stack_slice(params["dense0"], i), x, pos,
-                                   cache=_empty_cache(model, B, max_len),
-                                   kv_len=0)
-        caches.append({"ckv": ckv})
-    plan = moe_plan if moe_plan is not None \
-        else moe_plan_for_model(model, B * T)
-    for i in range(model.cfg.n_layers - model.cfg.first_dense_layers):
-        x, ckv, _ = model.moe_block(_stack_slice(params["blocks"], i), x,
-                                    pos, plan,
-                                    cache=_empty_cache(model, B, max_len),
-                                    kv_len=0)
-        caches.append({"ckv": ckv})
+    if cfg.family == "moe":
+        x, caches = _prefill_moe(model, params, x, pos, max_len, moe_plan)
+    elif cfg.family == "ssm":
+        caches = []
+        for i in range(cfg.n_layers):
+            x, st = mamba_block(_stack_slice(params["blocks"], i), x, cfg,
+                                return_state=True)
+            caches.append(st)
+    else:
+        x, caches = _prefill_hybrid(model, params, x, pos, max_len)
     logits = model._logits(params, rms_norm(x[:, -1:], params["final_norm"]))
     return logits[:, 0], tuple(caches)
 
 
-def decode_step(model: Model, params: Dict, inputs: Dict,
-                caches: Tuple, cur_len: int):
-    """One-token step.  ``inputs``: {"tokens": [B, 1]}; ``cur_len``: tokens
-    already in the caches.  Returns (logits [B, V], caches)."""
+# ---------------------------------------------------------------------------
+# decode
+# ---------------------------------------------------------------------------
+
+
+def _decode_moe(model: Model, params: Dict, x, cur: int,
+                caches: Tuple) -> Tuple[torch.Tensor, List]:
     cfg = model.cfg
-    cur = int(cur_len)
-    x = model._embed_in(params, inputs)
     B = x.shape[0]
     pos = torch.full((B, 1), cur, dtype=torch.int32, device=x.device)
     new_caches = []
@@ -101,5 +210,54 @@ def decode_step(model: Model, params: Dict, inputs: Dict,
                                     pos, plan, cache=caches[n0 + i]["ckv"],
                                     kv_len=cur)
         new_caches.append({"ckv": ckv})
+    return x, new_caches
+
+
+def _decode_hybrid(model: Model, params: Dict, x, cur: int,
+                   caches: Tuple) -> Tuple[torch.Tensor, List]:
+    """``x0``, the input of every shared block's concat, is the new token's
+    embedding."""
+    cfg = model.cfg
+    per = cfg.shared_attn_period
+    n_seg = cfg.n_layers // per
+    x0 = x
+    it = iter(caches)
+    new_caches = []
+    for seg in range(n_seg):
+        for j in range(per):
+            x, st = mamba_block(
+                _stack_slice(params["mamba_main"], seg * per + j), x, cfg,
+                state=next(it))
+            new_caches.append(st)
+        sb = model.shared_block(params, seg)
+        h = rms_norm(torch.cat([x, x0], dim=-1), sb["ln1"])
+        a, c = _decode_attn(sb["attn"], h, cur, cfg, 0, next(it))
+        x = x + a
+        x = x + mlp(sb["mlp"], rms_norm(x, sb["ln2"]), cfg.act)
+        new_caches.append(c)
+    for j in range(cfg.n_layers - n_seg * per):
+        x, st = mamba_block(_stack_slice(params["mamba_tail"], j), x, cfg,
+                            state=next(it))
+        new_caches.append(st)
+    return x, new_caches
+
+
+def decode_step(model: Model, params: Dict, inputs: Dict,
+                caches: Tuple, cur_len: int):
+    """One-token step.  ``inputs``: {"tokens": [B, 1]}; ``cur_len``: tokens
+    already in the caches.  Returns (logits [B, V], caches)."""
+    cfg = model.cfg
+    cur = int(cur_len)
+    x = model._embed_in(params, inputs)
+    if cfg.family == "moe":
+        x, new_caches = _decode_moe(model, params, x, cur, caches)
+    elif cfg.family == "ssm":
+        new_caches = []
+        for i in range(cfg.n_layers):
+            x, st = mamba_block(_stack_slice(params["blocks"], i), x, cfg,
+                                state=caches[i])
+            new_caches.append(st)
+    else:
+        x, new_caches = _decode_hybrid(model, params, x, cur, caches)
     logits = model._logits(params, rms_norm(x, params["final_norm"]))
     return logits[:, 0], tuple(new_caches)

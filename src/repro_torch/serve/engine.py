@@ -4,7 +4,7 @@ Ported from ``repro.serve.engine`` (``Request``, ``ServeEngine`` with
 ``submit``, ``step``, ``run_until_drained`` and the pre-warmed decode and
 worst-case prefill dispatch plans).  The adaptive re-planner, elastic
 resizing, the obs/refit loop and ``verify`` are still to port (ROADMAP
-Queue 1 item 12).
+Queue 1 item 7).
 
 Static batch slots: requests are admitted into free slots and the whole
 batch prefills together (each active slot re-presents its full history as
@@ -46,16 +46,19 @@ class ServeEngine:
         self.caches = None
         self.cur_len = 0
         self._next_tok = np.zeros((batch_slots, 1), np.int32)
-        # dispatch planning is hoisted out of the decode loop: the decode
-        # plan (one token per slot) is built here and every decode step hits
-        # it; prefill dispatch is planned once for the worst case
+        # MoE dispatch planning is hoisted out of the decode loop: the
+        # decode plan (one token per slot) is built here and every decode
+        # step hits it; prefill dispatch is planned once for the worst case
         # (B * max_len tokens) and pinned, so re-prefills at every history
-        # length share one plan-cache entry
+        # length share one plan-cache entry.  The other families dispatch
+        # nothing.
         self.plan_cache = default_plan_cache()
-        self.moe_plan = serving.moe_plan_for_model(model, self.B,
-                                                   cache=self.plan_cache)
-        self.moe_prefill_plan = serving.moe_plan_for_model(
-            model, self.B * self.max_len, cache=self.plan_cache)
+        self.moe_plan = self.moe_prefill_plan = None
+        if model.cfg.family == "moe":
+            self.moe_plan = serving.moe_plan_for_model(
+                model, self.B, cache=self.plan_cache)
+            self.moe_prefill_plan = serving.moe_plan_for_model(
+                model, self.B * self.max_len, cache=self.plan_cache)
 
     def _prefill(self, params, inputs):
         return serving.prefill(self.model, params, inputs,

@@ -51,7 +51,10 @@ def test_port_imports_no_jax_and_no_reference_package():
                 "repro_torch.models.common", "repro_torch.models.attention",
                 "repro_torch.models.blocks", "repro_torch.models.moe",
                 "repro_torch.models.lm", "repro_torch.models.convert",
-                "repro_torch.models.serving", "repro_torch.serve.engine"):
+                "repro_torch.models.serving", "repro_torch.serve.engine",
+                "repro_torch.configs.zamba2_7b",
+                "repro_torch.configs.mamba2_780m", "repro_torch.models.ssm",
+                "repro_torch.kernels.ssd_scan.cuda"):
         assert mod in report["imported"]
     assert "chip_smoke" in report["loaded"]
     assert [m for m in report["loaded"] if _reference(m)] == []

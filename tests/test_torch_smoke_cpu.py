@@ -50,9 +50,9 @@ def test_chip_smoke_phases_run_on_cpu():
 
 def test_chip_smoke_serve_phase_runs_on_cpu():
     """The serve phase at the reduced DeepSeek-V2-Lite config: every mode
-    serves all requests, the plain-version replay and the ample-capacity
-    modes agree, the replay refuses both planted faults, and every K5-K7
-    path call and edge case is checked."""
+    serves all requests, the plain-version replay of the oracle's modes and
+    the ample-capacity modes agree, the replay refuses both planted faults,
+    and every K5-K7 path call and edge case is checked."""
     chip_smoke = _chip_smoke()
     res = chip_smoke.serve_run("cpu", reduced_config=True)
     assert set(res["modes"]) == set(chip_smoke.SERVE_MODES)
@@ -60,11 +60,13 @@ def test_chip_smoke_serve_phase_runs_on_cpu():
     for mode, rec in res["modes"].items():
         assert sorted(len(t) for t in rec["tokens"].values()) == \
             sorted(sizes["new"])
-        assert rec["oracle_rel_err"] == 0.0       # the plain version itself
         assert rec["prefills"] >= 2 and rec["decode_steps"] > 0
+    for mode in chip_smoke.ORACLE_MODES:
+        # the plain version itself
+        assert res["modes"][mode]["oracle_rel_err"] == 0.0
     assert res["modes"]["auto"]["decode_mode"] in ("a2a", "hier",
                                                   "hier_dedup")
-    planted = res["modes"][chip_smoke.SERVE_MODES[0]]["planted"]
+    planted = res["modes"][chip_smoke.ORACLE_MODES[0]]["planted"]
     assert len(planted) == 2
     for got in planted.values():
         assert got["rel_err"] > chip_smoke.LOGIT_TOL or got["differ"] > 0
@@ -72,4 +74,31 @@ def test_chip_smoke_serve_phase_runs_on_cpu():
     for rec in res["kernels"].values():
         assert rec["max_abs_err"] == 0.0 and rec["checked"] > 0
         assert rec["bound_ms"] > 0.0 and "decode" in rec
+    assert all(n == 0 for n in res["launches"].values())   # no card
+
+
+def test_chip_smoke_hybrid_phase_runs_on_cpu():
+    """The hybrid phase at the reduced zamba2-7b config: all requests
+    served, the float32 replay through the plain versions agrees, both
+    planted K8 faults are refused, and every K7 / K8 path call and edge
+    case is checked."""
+    chip_smoke = _chip_smoke()
+    res = chip_smoke.hybrid_run("cpu", reduced_config=True)
+    summ = res["summary"]
+    sizes = chip_smoke.serve_sizes(False)
+    assert sorted(len(t) for t in summ["tokens"].values()) == \
+        sorted(sizes["new"])
+    assert summ["prefills"] >= 2 and summ["decode_steps"] > 0
+    assert summ["oracle_rel_err"] == 0.0          # the plain version itself
+    assert summ["probe_bf16"]["kernel_vs_plain"] == 0.0
+    assert len(summ["planted"]) == 2
+    for got in summ["planted"].values():
+        assert got["rel_err"] > chip_smoke.HYBRID_LOGIT_TOL \
+            or got["differ"] > 0
+    assert set(res["kernels"]) == set(chip_smoke.HYBRID_SOURCES)
+    for rec in res["kernels"].values():
+        assert rec["max_abs_err"] == 0.0 and rec["checked"] > 0
+        assert rec["bound_ms"] > 0.0
+    assert res["kernels"]["ssd_scan_h"]["library_ms"] is None
+    assert "decode" in res["kernels"]["flash_attention_bh"]
     assert all(n == 0 for n in res["launches"].values())   # no card
