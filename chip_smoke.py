@@ -20,10 +20,14 @@ any phase fails:
    every kernel call of one V-cycle;
 4. holds K1-K4 against their plain torch versions, in float64 and float32,
    on the operands the solves gave them (each distinct call of the
-   recorded V-cycles), and times them there; plus an edge case (ragged
-   last row block, an empty bucket, ``hi == lo`` for K3, ``M > counts[i]``
-   for K4) and a stress case the solves never make (K2/K3 over all buckets
-   of the fine level's bucketed layout);
+   recorded V-cycles), and times them there (each kernel's largest call
+   also by its own device time under ``torch.profiler``, from a cold L2:
+   :func:`cold_copies`); replays the largest K4 and K2 calls with a fault
+   planted in the binding (each row block's last listed bucket dropped;
+   the last bucket dropped), which the check must refuse; plus an edge case (ragged last row block, an empty
+   bucket, ``hi == lo`` for K3, ``M > counts[i]`` for K4) and a stress
+   case the solves never make (K2/K3 over all buckets of the fine level's
+   bucketed layout);
 5. serve: draws DeepSeek-V2-Lite at full width and depth in bf16 on the
    card (seeded) and serves six requests through ``ServeEngine`` on 8 EP
    lanes (2 pods x 4) under ``a2a``, ``hier``, ``hier_dedup`` and
@@ -46,8 +50,10 @@ any phase fails:
    and K8 (logits and greedy tokens must agree) and through the kernels
    with two K8 faults planted in the binding (the oracle must refuse
    both);
-7. checks that each path launched each of its kernels, and prints one
-   JSON line with every kernel's record.
+7. checks that each path launched each of its kernels (the AMG solves
+   the launches per V-cycle of ``VCYCLE_LAUNCHES``), and prints one JSON
+   line with every kernel's record: ``ms`` by CUDA events, ``device_ms``
+   and ``host_us`` (:func:`device_times`), bound, plain and library times.
 
 Its last line is ``{"ok": true, "device": {...}}``.  It uses no JAX.
 """
@@ -57,6 +63,7 @@ import contextlib
 import dataclasses
 import gc
 import inspect
+import itertools
 import json
 import subprocess
 import sys
@@ -95,6 +102,14 @@ OPS_FN = {
 }
 SOLVES = [("flat", "off"), ("flat", "on"), ("blocked", "off"),
           ("blocked", "on")]
+# K1-K4 launches per V-cycle of each solve of the paper problem
+VCYCLE_LAUNCHES = {
+    ("flat", "off"): {"spmv_ell": 230},
+    ("flat", "on"): {"spmv_ell": 230},
+    ("blocked", "off"): {"spmv_ell_blocked": 78, "spmv_ell_blocked_skip": 37},
+    ("blocked", "on"): {"spmv_ell_blocked_partial": 165,
+                        "spmv_ell_blocked_skip": 65},
+}
 
 
 def log(*args) -> None:
@@ -115,6 +130,65 @@ def nvidia_smi_line() -> str:
 
 
 # ----------------------------------------------------------------- timing
+def device_times(fns: dict, on_card: bool, iters: int = 20,
+                 warmup: int = 3) -> dict:
+    """name -> (device ms, host us) per call of each function in ``fns``:
+    the card's time for the call's own device work, from the device events
+    ``torch.profiler`` records while the function runs ``warmup + iters``
+    times in a profiler session of its own, each kernel's mean duration
+    times its launches per call; and the host's time to issue one call,
+    over ``iters`` calls issued back to back outside the profiler.
+    (None, None) off the card: a CPU run has no device time.
+
+    One session per function: a shared session cannot tell their events
+    apart by time, the device clock is not aligned with the host's finely
+    enough.  Means, not sums: the profiler was seen to record only some of
+    a session's device events, so a sum would count the missing ones as
+    zero.  A kernel is taken to launch ``round(events / calls)`` times a
+    call, at least once; a shortfall is logged."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if not on_card:
+        return {k: (None, None) for k in fns}
+    calls = warmup + iters
+    out = {}
+    for k, fn in fns.items():
+        for _ in range(warmup):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        host_us = (time.perf_counter() - t0) * 1e6 / iters
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        kernels: dict = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                tot, n = kernels.get(e.name, (0.0, 0))
+                kernels[e.name] = (
+                    tot + e.time_range.end - e.time_range.start, n + 1)
+        if not kernels:
+            log(f"    ({k}: the profiler recorded no device event)")
+            out[k] = (None, host_us)
+            continue
+        per_call = {e: max(1, round(n / calls))
+                    for e, (_, n) in kernels.items()}
+        recorded = sum(n for _, n in kernels.values())
+        if recorded < calls * sum(per_call.values()):
+            log(f"    ({k}: the profiler recorded {recorded} of "
+                f"{calls * sum(per_call.values())} device events: "
+                + ", ".join(f"{e[:40]} {n}"
+                            for e, (_, n) in kernels.items()) + ")")
+        dev_us = sum(tot / n * per_call[e] for e, (tot, n) in kernels.items())
+        out[k] = (dev_us / 1e3, host_us)
+    return out
+
+
 def time_ms(fn, sync, iters: int = 20, warmup: int = 3) -> float:
     """Mean milliseconds per call: CUDA events around ``iters`` calls on the
     card.  On the CPU (a rehearsal, not a measurement) the host clock
@@ -168,10 +242,10 @@ def plain_call(name: str, a: dict):
     if name == "spmv_ell_blocked_partial":
         return ref.spmv_ell_blocked_partial_ref(
             cols, vals, x, a["y0"], a["bucket_lo"], a["bucket_hi"],
-            a["block_cols"], a["n_buckets"])
+            a["block_cols"])
     return ref.spmv_ell_blocked_skip_ref(
-        cols, vals, x, a["bucket_lists"], a["bucket_counts"], a["n_buckets"],
-        a["block_cols"], min(a["block_rows"], cols.shape[1]),
+        cols, vals, x, a["bucket_lists"], a["bucket_counts"],
+        a["block_cols"], min(a["block_rows"], cols.shape[2]),
         a["bucket_base"], a["y0"])
 
 
@@ -184,8 +258,8 @@ def cast(a: dict, dtype) -> dict:
 
 
 def n_buckets(a: dict) -> int:
-    """Buckets of the call's layout (K2 covers them all with its x)."""
-    return a.get("n_buckets", a["x"].shape[1] // a["block_cols"])
+    """Buckets of the call's bucket-major [P, C, R, K] layout."""
+    return a["cols"].shape[1]
 
 
 def bucket_window(a: dict):
@@ -201,18 +275,16 @@ def work(name: str, a: dict):
     import torch
 
     cols, vals, x, y0 = a["cols"], a["vals"], a["x"], a.get("y0")
-    P_, R, W = cols.shape
+    P_, R, K = cols.shape[0], cols.shape[-2], cols.shape[-1]
     vb = vals.element_size()
     io = P_ * R * vb + (0 if y0 is None else y0.numel() * vb)
     x_bytes = x.numel() * vb
     if name in ("spmv_ell", "spmv_ell_blocked"):
         entries = cols.numel()
     elif name == "spmv_ell_blocked_partial":
-        K = W // a["n_buckets"]
         entries = P_ * R * (a["bucket_hi"] - a["bucket_lo"]) * K
     else:
         lists, counts = a["bucket_lists"], a["bucket_counts"]
-        K = W // a["n_buckets"]
         br = min(a["block_rows"], R)
         nrb, M = lists.shape[1:]
         rb_rows = torch.clamp(
@@ -233,21 +305,22 @@ def library_call(name: str, a: dict):
     import torch
 
     cols, vals, x, y0 = a["cols"], a["vals"], a["x"], a.get("y0")
-    P_, R, W = cols.shape
+    P_, R = cols.shape[0], cols.shape[-2]
     dev = cols.device
+    rows = torch.arange(P_ * R, device=dev).reshape(P_, R, 1)
     if name == "spmv_ell":
         c, v = cols.long(), vals
     else:
         lo, nb = bucket_window(a)
-        K = W // n_buckets(a)
-        base = torch.repeat_interleave(
-            torch.arange(nb, device=dev) * a["block_cols"], K)
-        c = cols[..., lo * K:(lo + nb) * K].long() + base
-        v = vals[..., lo * K:(lo + nb) * K]
+        off = torch.arange(nb, device=dev) * a["block_cols"]
+        c = cols[:, lo:lo + nb].long() + off[None, :, None, None]
+        v = vals[:, lo:lo + nb]
+        rows = rows[:, None]
     n = x.shape[1]
     keep = v != 0
-    rows = torch.arange(P_ * R, device=dev).reshape(P_, R, 1).expand(c.shape)
-    gcols = c + torch.arange(P_, device=dev)[:, None, None] * n
+    rows = rows.expand(c.shape)
+    gcols = c + (torch.arange(P_, device=dev) * n).reshape(
+        (P_,) + (1,) * (c.dim() - 1))
     A = torch.sparse_coo_tensor(
         torch.stack([rows[keep], gcols[keep]]), v[keep], (P_ * R, P_ * n),
     ).coalesce().to_sparse_csr()
@@ -279,9 +352,46 @@ def check_call(name: str, a: dict, label: str) -> float:
     return abs_err
 
 
+# bytes that a pass over the cold copies of one call moves, against the L2
+COLD_L2_PASSES = 2
+# the most the cold copies of one call may hold on the card
+COLD_COPIES_MAX_BYTES = 4 << 30
+
+
+def cold_copies(name: str, a: dict, nbytes: int, l2: int) -> list:
+    """Copies of the operands the call reads, so many that a pass over them
+    moves ``COLD_L2_PASSES`` times the L2 (``l2`` bytes): calling them in
+    turn, each call finds its operands evicted by the calls before it.  A call
+    that moves more than the L2 by itself is its own copy (K4's fine-level
+    call: x, which every row block reads, stays warm, as on the path).  A
+    K3 copy holds its bucket range only, rebased to start at bucket 0: the
+    same products in the same order."""
+    import torch
+
+    n = -(-COLD_L2_PASSES * l2 // nbytes)
+    if nbytes >= l2 or n <= 1:
+        return [a]
+    if name == "spmv_ell_blocked_partial":
+        lo, hi = a["bucket_lo"], a["bucket_hi"]
+        a = dict(a, cols=a["cols"][:, lo:hi], vals=a["vals"][:, lo:hi],
+                 bucket_lo=0, bucket_hi=hi - lo, n_buckets=hi - lo)
+    held = sum(v.numel() * v.element_size() for v in a.values()
+               if torch.is_tensor(v))
+    if n * held > COLD_COPIES_MAX_BYTES:
+        fail(f"{name}: {n} cold copies would hold {n * held} bytes")
+    return [{k: v.clone(memory_format=torch.contiguous_format)
+             if torch.is_tensor(v) else v for k, v in a.items()}
+            for _ in range(n)]
+
+
 def time_call(name: str, a: dict, on_card: bool,
               library: bool = False) -> dict:
-    """Kernel and plain ms of the call, its bound, and the library's ms."""
+    """Kernel and plain ms of the call and its bound; with ``library``,
+    the library's ms, and the kernel's and the library's own device ms
+    from a cold L2 (each call of :func:`device_times` on the next of the
+    :func:`cold_copies`) and the kernel's host us per call."""
+    import torch
+
     nbytes, flops = work(name, a)
     dname = str(a["vals"].dtype).split(".")[1]
     t_bytes = nbytes / PEAK_BYTES_PER_S
@@ -291,10 +401,22 @@ def time_call(name: str, a: dict, on_card: bool,
         plain_ms=time_ms(lambda: plain_call(name, a), on_card),
         bound_ms=max(t_bytes, t_ops) * 1e3,
         bound_by="bytes" if t_bytes >= t_ops else "operations",
-        mbytes=nbytes / 1e6,
-        library_ms=(time_ms(library_call(name, a), on_card) if library
-                    else None),
+        mbytes=nbytes / 1e6, library_ms=None,
     )
+    if library:
+        rec["library_ms"] = time_ms(library_call(name, a), on_card)
+        copies = [a]
+        if on_card:
+            l2 = torch.cuda.get_device_properties(
+                a["cols"].device).L2_cache_size
+            copies = cold_copies(name, a, nbytes, l2)
+        args = itertools.cycle(copies)
+        libs = itertools.cycle([library_call(name, c) for c in copies])
+        t = device_times({"kernel": lambda: kernel_call(name, next(args)),
+                          "library": lambda: next(libs)()}, on_card)
+        rec["device_ms"], rec["host_us"] = t["kernel"]
+        rec["library_device_ms"] = t["library"][0]
+        rec["cold_copies"] = len(copies)
     return rec
 
 
@@ -313,7 +435,10 @@ def call_shape(name: str, a: dict) -> str:
 def recording_kernel_calls(calls: dict):
     """Record the kernel calls the distributed SpMVs make while the block
     runs: ``calls[(kernel, operand, window)] = [times called, arguments of
-    the first call]``.  The calls still go through to the wrappers."""
+    the last call]``.  The last, not the first: each level's first product
+    in a V-cycle is of the zero vector (the smoother starts from x = 0),
+    which every kernel gets right.  The calls still go through to the
+    wrappers."""
     from repro_torch.kernels.spmv_ell import ops
     from repro_torch.sparse import device as spmv_module
 
@@ -329,7 +454,9 @@ def recording_kernel_calls(calls: dict):
             key = (_name, a["cols"].data_ptr(), a.get("bucket_lo"),
                    a.get("bucket_hi"), a.get("bucket_base"),
                    tuple(a["x"].shape))
-            calls.setdefault(key, [0, a])[0] += 1
+            entry = calls.setdefault(key, [0, a])
+            entry[0] += 1
+            entry[1] = a
             return _fn(*args, **kwargs)
 
         saved[fn_name] = getattr(spmv_module, fn_name)
@@ -342,10 +469,15 @@ def recording_kernel_calls(calls: dict):
 
 
 # ------------------------------------------------------------ kernel phase
-def path_kernel_phase(recorded: dict, on_card: bool) -> dict:
+def fmt_ms(v) -> str:
+    return "not measured" if v is None else f"{v:.4f}"
+
+
+def path_kernel_phase(recorded: dict, on_card: bool):
     """Every distinct kernel call of the recorded V-cycles against its
     plain version, timed; per configuration and kernel, the V-cycle's sum
-    over its calls; per kernel, the record of its largest call."""
+    over its calls; per kernel, the record of its largest call.  Returns
+    the records and the readings of the planted faults."""
     results = {}
     for config, calls in recorded.items():
         tag = "/".join(config)
@@ -369,15 +501,63 @@ def path_kernel_phase(recorded: dict, on_card: bool) -> dict:
                 f"float64 and float32; per V-cycle kernel "
                 f"{tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, "
                 f"bound {tot['bound_ms']:.4f} ms")
+    largest = {}
     for name, rec in results.items():
-        a = rec.pop("args")
+        a = largest[name] = rec.pop("args")
         rec.update(time_call(name, a, on_card, library=True))
         log(f"  {name} largest path call ({rec['config']}: "
             f"{call_shape(name, a)}, {rec['mbytes']:.1f} MB): kernel "
             f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, library "
             f"{rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
-            f"({rec['bound_by']})")
-    return results
+            f"({rec['bound_by']}); device ms {fmt_ms(rec['device_ms'])} "
+            f"(library {fmt_ms(rec['library_device_ms'])}; cold L2, "
+            f"{rec['cold_copies']} copies), host us per call "
+            f"{fmt_ms(rec['host_us'])}")
+    return results, planted_spmv_faults(largest)
+
+
+def planted_spmv_faults(largest: dict) -> dict:
+    """The largest K4 and K2 path calls replayed through the kernels with a
+    fault planted in the binding (the sources untouched): K4 with each row
+    block's last listed bucket dropped (its count one less), K2 with the
+    layout's last bucket dropped (cols, vals and x cut to C - 1 buckets).
+    The kernel-vs-plain check must refuse both, in float64 and float32;
+    returns each fault's max rel error by dtype."""
+    import torch
+
+    def k4_drops_last_listed(a):
+        counts = torch.clamp(a["bucket_counts"] - 1, min=0)
+        return kernel_call("spmv_ell_blocked_skip",
+                           dict(a, bucket_counts=counts))
+
+    def k2_drops_last_bucket(a):
+        bc = a["block_cols"]
+        return kernel_call("spmv_ell_blocked", dict(
+            a, cols=a["cols"][:, :-1].contiguous(),
+            vals=a["vals"][:, :-1].contiguous(),
+            x=a["x"][:, :-bc].contiguous()))
+
+    faults = {
+        "K4 drops each row block's last listed bucket": (
+            "spmv_ell_blocked_skip", k4_drops_last_listed),
+        "K2 drops its last bucket": ("spmv_ell_blocked",
+                                     k2_drops_last_bucket),
+    }
+    readings = {}
+    for label, (name, faulty) in faults.items():
+        errs = {}
+        for dtype in (torch.float64, torch.float32):
+            dname = str(dtype).split(".")[1]
+            ad = cast(largest[name], dtype)
+            errs[dname] = rel_err(faulty(ad), plain_call(name, ad))
+        readings[label] = errs
+        if any(err <= TOL[d] for d, err in errs.items()):
+            fail(f"the kernel check misses a planted fault ({label}): max "
+                 f"rel error {errs} within {TOL}")
+        log(f"{name} check refuses a planted fault, {label}: max rel error "
+            f"against the plain version {errs['float64']:.3e} (float64), "
+            f"{errs['float32']:.3e} (float32); tolerance {TOL}")
+    return readings
 
 
 def synthetic_calls(h, device, block_cols: int, edge: bool, gen):
@@ -389,6 +569,7 @@ def synthetic_calls(h, device, block_cols: int, edge: bool, gen):
     import numpy as np
     import torch
 
+    from repro_torch.kernels.spmv_ell import to_bucket_major
     from repro_torch.sparse import (
         partition_csr,
         partitioned_to_ell,
@@ -416,7 +597,8 @@ def synthetic_calls(h, device, block_cols: int, edge: bool, gen):
 
     C, Cl, bc = blk.n_buckets, blk.n_local_buckets, block_cols
     R = cols.shape[1]
-    cols, vals, y0 = t(cols), t(vals), rnd(N_PROCS, R)
+    cols, vals = (to_bucket_major(a, C, device) for a in (cols, vals))
+    y0 = rnd(N_PROCS, R)
     xb = rnd(N_PROCS, C * bc)
     k3 = dict(cols=cols, vals=vals, x=xb[:, :Cl * bc].contiguous(), y0=y0,
               bucket_lo=0, bucket_hi=Cl, n_buckets=C, block_cols=bc)
@@ -1121,20 +1303,28 @@ def check_serve_call(name: str, a: dict, label: str) -> float:
 
 def time_serve_call(name: str, a: dict, on_card: bool) -> dict:
     """Kernel, plain and library ms of the call (library None where no
-    PyTorch call computes it), and its bound."""
+    PyTorch call computes it), its bound, and the kernel's and the
+    library's own device ms and the kernel's host us per call
+    (:func:`device_times`)."""
     nbytes, flops = serve_work(name, a)
     dname = str(a["buf" if name == "combine_rows" else "q"
                   if name == "flash_attention_bh" else "x"].dtype).split(".")[1]
     t_bytes = nbytes / PEAK_BYTES_PER_S
     t_ops = flops / PEAK_FLOPS[dname]
     library = serve_library_call(name, a)
+    kernel = lambda: serve_kernel_call(name, a)
+    t = device_times({"kernel": kernel, **({} if library is None
+                                            else {"library": library})},
+                     on_card)
     return dict(
-        ms=time_ms(lambda: serve_kernel_call(name, a), on_card),
+        ms=time_ms(kernel, on_card),
         plain_ms=time_ms(lambda: serve_plain_call(name, a), on_card),
         library_ms=None if library is None else time_ms(library, on_card),
         bound_ms=max(t_bytes, t_ops) * 1e3,
         bound_by="bytes" if t_bytes >= t_ops else "operations",
         mbytes=nbytes / 1e6, gflop=flops / 1e9,
+        device_ms=t["kernel"][0], host_us=t["kernel"][1],
+        library_device_ms=t.get("library", (None,))[0],
     )
 
 
@@ -1175,7 +1365,10 @@ def serve_kernel_phase(recorded: dict, on_card: bool) -> dict:
         log(f"  {name} largest {phase} call ({serve_call_shape(name, a)}, "
             f"{t['mbytes']:.2f} MB, {t['gflop']:.3f} GFLOP): kernel "
             f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library "
-            f"{lib}, bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
+            f"{lib}, bound {t['bound_ms']:.4f} ms ({t['bound_by']}); device "
+            f"ms {fmt_ms(t['device_ms'])} (library "
+            f"{fmt_ms(t['library_device_ms'])}), host us per call "
+            f"{fmt_ms(t['host_us'])}")
         if phase == "prefill":
             results[name].update(t)
         else:
@@ -1666,9 +1859,10 @@ def run(device: str = "cuda", rows: int = 524_288, block_cols: int = 512,
     if on_card:
         torch.cuda.synchronize()
     launches = {k: LAUNCHES[k] for k in REPLACES}
-    kernels = path_kernel_phase(recorded, on_card)
+    kernels, planted = path_kernel_phase(recorded, on_card)
     synthetic_kernel_phase(h, device, block_cols, on_card, kernels)
-    return dict(kernels=kernels, launches=launches, solves=solves)
+    return dict(kernels=kernels, launches=launches, solves=solves,
+                planted=planted)
 
 
 def build_kernels() -> None:
@@ -1712,6 +1906,12 @@ def main() -> int:
     log(f"kernels launched by the solves: {res['launches']}")
     if missing:
         fail(f"kernels never launched on the main path: {missing}")
+    for config, want in VCYCLE_LAUNCHES.items():
+        got = {k: n / V_CYCLES
+               for k, n in res["solves"][config]["launches"].items() if n}
+        if got != want:
+            fail(f"solve {'/'.join(config)}: launches per V-cycle {got}, "
+                 f"expected {want}")
     log(f"AMG phases done at {time.perf_counter() - t_start:.1f} s")
     serve = serve_run("cuda")
     missing = [k for k, n in serve["launches"].items() if n <= 0]
@@ -1725,15 +1925,15 @@ def main() -> int:
     if missing:
         fail(f"kernels never launched on the hybrid path: {missing}")
     log(f"hybrid phase done at {time.perf_counter() - t_start:.1f} s")
+    timing = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+              "device_ms", "host_us", "library_device_ms")
     records = []
     for name in REPLACES:
         rec = res["kernels"][name]
         records.append(dict(
             name=name, route="cuda", source=SOURCE, replaces=REPLACES[name],
             launches=res["launches"][name], max_abs_err=rec["max_abs_err"],
-            ms=rec["ms"], plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
-            bound_by=rec["bound_by"], library_ms=rec["library_ms"],
-        ))
+            **{k: rec[k] for k in timing}))
     # K7 runs on both serve paths: its launches are both paths' and its
     # times those of its largest DeepSeek prefill call
     for name, (source, replaces) in {**SERVE_SOURCES,
@@ -1745,10 +1945,9 @@ def main() -> int:
         records.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=sum(p["launches"].get(name, 0) for p in (serve, hybrid)),
-            max_abs_err=err, ms=rec["ms"],
-            plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
-            bound_by=rec["bound_by"], library_ms=rec["library_ms"],
-        ))
+            max_abs_err=err, **{k: rec[k] for k in timing},
+            **({"decode": {k: rec["decode"][k] for k in timing}}
+               if "decode" in rec else {})))
     print(json.dumps({"kernels": records}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -8,6 +8,9 @@ reports an error, and counts the launch in
 :data:`repro_torch.kernels.LAUNCHES`.  Operand shapes are validated once, by
 the public wrappers in :mod:`.ops` that every call goes through.
 
+K2-K4 take the bucket-major ``[P, C, R, K]`` cols/vals; their launchers
+choose rows and threads per row from the shapes (``csrc/spmv_ell.cu``).
+
 Column indices, bucket lists and counts are not range-checked on the card:
 the packing in :mod:`repro_torch.sparse.device` produces them in range, and
 the plain versions in :mod:`.ref` raise on an index out of range.
@@ -23,9 +26,9 @@ from ..build import CudaLibrary, I, P, check_cuda
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 _ARGS = {
     "spmv_ell": [P, P, P, P, I, I, I, I],
-    "spmv_ell_blocked": [P, P, P, P, I, I, I, I, I, I],
-    "spmv_ell_blocked_partial": [P, P, P, P, P] + [I] * 7,
-    "spmv_ell_blocked_skip": [P] * 7 + [I] * 10,
+    "spmv_ell_blocked": [P, P, P, P] + [I] * 5,
+    "spmv_ell_blocked_partial": [P] * 5 + [I] * 7,
+    "spmv_ell_blocked_skip": [P] * 7 + [I] * 9,
 }
 LIBRARY = CudaLibrary("spmv_ell.cu", {
     f"repro_{name}_{sfx}": args
@@ -67,22 +70,20 @@ def spmv_ell(cols: torch.Tensor, vals: torch.Tensor,
 
 def spmv_ell_blocked(cols: torch.Tensor, vals: torch.Tensor,
                      x: torch.Tensor, block_cols: int) -> torch.Tensor:
-    """K2 on the card: cols/vals [P, R, C*K], x [P, C*block_cols]."""
+    """K2 on the card: cols/vals [P, C, R, K], x [P, C*block_cols]."""
     _check("spmv_ell_blocked", vals.dtype, cols=cols, vals=vals, x=x)
-    P_, R, W = cols.shape
-    C = x.shape[1] // int(block_cols)
+    P_, C, R, K = cols.shape
     y = torch.empty((P_, R), dtype=vals.dtype, device=vals.device)
     if y.numel():
         _launch("spmv_ell_blocked", vals.dtype, vals.device,
                 cols.data_ptr(), vals.data_ptr(), x.data_ptr(), y.data_ptr(),
-                P_, R, W, W // C, C, int(block_cols))
+                P_, R, C, K, int(block_cols))
     return y
 
 
 def spmv_ell_blocked_partial(
     cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor,
-    y0: torch.Tensor, bucket_lo: int, bucket_hi: int, n_buckets: int,
-    block_cols: int,
+    y0: torch.Tensor, bucket_lo: int, bucket_hi: int, block_cols: int,
 ) -> torch.Tensor:
     """K3 on the card: buckets [lo, hi) added to ``y0``; ``hi == lo``
     returns ``y0`` without a launch."""
@@ -90,20 +91,20 @@ def spmv_ell_blocked_partial(
            x=x, y0=y0)
     if bucket_hi == bucket_lo:
         return y0
-    P_, R, W = cols.shape
+    P_, C, R, K = cols.shape
     y = torch.empty((P_, R), dtype=vals.dtype, device=vals.device)
     if y.numel():
         _launch("spmv_ell_blocked_partial", vals.dtype, vals.device,
                 cols.data_ptr(), vals.data_ptr(), x.data_ptr(),
-                y0.data_ptr(), y.data_ptr(), P_, R, W, W // int(n_buckets),
-                int(bucket_lo), int(bucket_hi), int(block_cols))
+                y0.data_ptr(), y.data_ptr(), P_, R, C, K, int(bucket_lo),
+                int(bucket_hi), int(block_cols))
     return y
 
 
 def spmv_ell_blocked_skip(
     cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor,
     bucket_lists: torch.Tensor, bucket_counts: torch.Tensor,
-    n_buckets: int, block_cols: int, block_rows: int, bucket_base: int,
+    block_cols: int, block_rows: int, bucket_base: int,
     y0: Optional[torch.Tensor],
 ) -> torch.Tensor:
     """K4 on the card: one thread block of ``block_rows`` threads per row
@@ -113,8 +114,8 @@ def spmv_ell_blocked_skip(
     if y0 is not None:
         operands["y0"] = y0
     _check("spmv_ell_blocked_skip", vals.dtype, **operands)
-    P_, R, W = cols.shape
-    nrb, M = bucket_lists.shape[1:]
+    P_, C, R, K = cols.shape
+    M = bucket_lists.shape[2]
     if not 0 < block_rows <= 1024:
         raise ValueError(f"spmv_ell_blocked_skip: {block_rows} rows per "
                          "row block; a thread block holds at most 1024")
@@ -124,6 +125,6 @@ def spmv_ell_blocked_skip(
                 cols.data_ptr(), vals.data_ptr(), x.data_ptr(),
                 bucket_lists.data_ptr(), bucket_counts.data_ptr(),
                 None if y0 is None else y0.data_ptr(), y.data_ptr(),
-                P_, R, W, W // int(n_buckets), M, nrb, int(block_rows),
-                int(bucket_base), int(block_cols), x.shape[1])
+                P_, R, C, K, M, int(block_rows), int(bucket_base),
+                int(block_cols), x.shape[1])
     return y

@@ -1,13 +1,18 @@
 """Public ELL SpMV ops: CSR->ELL conversion, input validation, dispatch.
 
-Every op takes rank-stacked operands (``cols``/``vals`` ``[P, R, W]``,
-vectors ``[P, N]``) and validates them the same way whatever the device,
-so the plain version and the CUDA kernel reject malformed input alike.
-CPU tensors go to :mod:`.ref`, CUDA tensors to the kernels in :mod:`.cuda`.
+Every op takes rank-stacked operands and validates them the same way
+whatever the device, so the plain version and the CUDA kernel reject
+malformed input alike.  K1 takes the flat ``cols``/``vals`` ``[P, R, K]``;
+K2-K4 take the bucketed operator bucket-major, ``[P, C, R, K]``
+(:func:`to_bucket_major` of the ``[P, R, C*K]`` layout that
+:func:`repro_torch.sparse.device.partitioned_to_ell_blocked` packs, as the
+reference does), so that a row block's tile of one bucket is contiguous.
+Vectors are ``[P, N]``.  CPU tensors go to :mod:`.ref`, CUDA tensors to the
+kernels in :mod:`.cuda`.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -43,6 +48,38 @@ def csr_to_ell(
     return cols, vals
 
 
+def to_bucket_major(a: Union[np.ndarray, torch.Tensor], n_buckets: int,
+                    device=None) -> torch.Tensor:
+    """``[P, R, C*K]`` (a row's C buckets of K entries consecutive) ->
+    ``[P, C, R, K]`` on ``device`` (default: where ``a`` is), the layout of
+    K2-K4: bucket ``b`` of rows ``r0..r1`` is one contiguous run.  Copied
+    one rank at a time, so ``device`` holds the result and one rank's
+    slice in flight, never a second whole copy."""
+    src = torch.as_tensor(a)
+    P_, R, W = src.shape
+    C = int(n_buckets)
+    if C <= 0 or W % C:
+        raise ValueError(f"width {W} not divisible by n_buckets {C}")
+    out = torch.empty((P_, C, R, W // C), dtype=src.dtype,
+                      device=src.device if device is None else device)
+    for p in range(P_):
+        out[p].copy_(src[p].to(out.device).reshape(R, C, W // C)
+                     .transpose(0, 1))
+    return out
+
+
+def from_bucket_major(a: torch.Tensor) -> torch.Tensor:
+    """``[P, C, R, K]`` -> ``[P, R, C*K]``: the inverse of
+    :func:`to_bucket_major`."""
+    P_, C, R, K = a.shape
+    return a.transpose(1, 2).reshape(P_, R, C * K)
+
+
+def _check_vector(x: torch.Tensor, P_: int) -> None:
+    if x.dim() != 2 or x.shape[0] != P_:
+        raise ValueError(f"x {tuple(x.shape)}: expected [P, N] with P={P_}")
+
+
 def _check_stacked(cols: torch.Tensor, vals: torch.Tensor,
                    x: torch.Tensor) -> None:
     if cols.dim() != 3 or vals.shape != cols.shape:
@@ -50,9 +87,27 @@ def _check_stacked(cols: torch.Tensor, vals: torch.Tensor,
             f"cols {tuple(cols.shape)} / vals {tuple(vals.shape)}: expected "
             "equal [P, R, W] shapes"
         )
-    if x.dim() != 2 or x.shape[0] != cols.shape[0]:
+    _check_vector(x, cols.shape[0])
+
+
+def _check_bucketed(cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor,
+                    block_cols: int, n_buckets: Optional[int] = None) -> None:
+    """Bucket-major cols/vals, x [P, N] in whole buckets, and (if given)
+    ``n_buckets`` equal to the layout's."""
+    if cols.dim() != 4 or vals.shape != cols.shape:
         raise ValueError(
-            f"x {tuple(x.shape)}: expected [P, N] with P={cols.shape[0]}"
+            f"cols {tuple(cols.shape)} / vals {tuple(vals.shape)}: expected "
+            "equal bucket-major [P, C, R, K] shapes (to_bucket_major)"
+        )
+    _check_vector(x, cols.shape[0])
+    if x.shape[-1] % block_cols:
+        raise ValueError(
+            f"x length {x.shape[-1]} not a multiple of block_cols "
+            f"{block_cols}: pack with partitioned_to_ell_blocked"
+        )
+    if n_buckets is not None and n_buckets != cols.shape[1]:
+        raise ValueError(
+            f"n_buckets {n_buckets} != the layout's {cols.shape[1]} buckets"
         )
 
 
@@ -70,20 +125,16 @@ def spmv_blocked(
     cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor,
     block_cols: int = DEFAULT_BLOCK_COLS,
 ) -> torch.Tensor:
-    """K2, column-blocked ELL SpMV over the bucketed ``[P, R, C*K]`` layout.
+    """K2, column-blocked ELL SpMV over every bucket of the bucket-major
+    ``[P, C, R, K]`` layout.
 
-    ``x`` must be bucket-padded (length a multiple of ``block_cols``, as
-    produced by the bucketed packing)."""
-    _check_stacked(cols, vals, x)
-    if x.shape[-1] % block_cols:
+    ``x`` must be bucket-padded: C slices of ``block_cols``, as produced
+    by the bucketed packing."""
+    _check_bucketed(cols, vals, x, block_cols)
+    if x.shape[-1] != cols.shape[1] * block_cols:
         raise ValueError(
-            f"x length {x.shape[-1]} not a multiple of block_cols "
-            f"{block_cols}: pack with partitioned_to_ell_blocked"
-        )
-    if cols.shape[-1] % (x.shape[-1] // block_cols):
-        raise ValueError(
-            f"cols width {cols.shape[-1]} not divisible by the "
-            f"{x.shape[-1] // block_cols} x buckets"
+            f"x's {x.shape[-1]} entries are not divisible into the layout's "
+            f"{cols.shape[1]} buckets of {block_cols}"
         )
     if use_kernel(cols, vals, x):
         return cuda.spmv_ell_blocked(cols, vals, x, block_cols)
@@ -100,7 +151,7 @@ def spmv_blocked_partial(
     """K3, blocked SpMV over buckets [lo, hi) accumulated into a carried
     ``y0`` (the overlap schedule's per-phase entry point).  ``x`` holds
     only the range's slices: (hi - lo) * block_cols entries."""
-    _check_stacked(cols, vals, x)
+    _check_bucketed(cols, vals, x, block_cols, n_buckets)
     lo, hi = int(bucket_lo), int(bucket_hi)
     if not (0 <= lo <= hi <= n_buckets):
         raise ValueError(
@@ -111,22 +162,17 @@ def spmv_blocked_partial(
             f"x length {x.shape[-1]} != (hi-lo)*block_cols "
             f"{(hi - lo) * block_cols}"
         )
-    if cols.shape[-1] % n_buckets:
+    if y0.shape != (cols.shape[0], cols.shape[2]):
         raise ValueError(
-            f"cols width {cols.shape[-1]} not divisible by n_buckets "
-            f"{n_buckets}"
-        )
-    if y0.shape != cols.shape[:2]:
-        raise ValueError(
-            f"y0 {tuple(y0.shape)}: expected {tuple(cols.shape[:2])}"
+            f"y0 {tuple(y0.shape)}: expected "
+            f"{(cols.shape[0], cols.shape[2])}"
         )
     if use_kernel(cols, vals, x, y0):
         return cuda.spmv_ell_blocked_partial(
-            cols, vals, x, y0, lo, hi, n_buckets, block_cols
+            cols, vals, x, y0, lo, hi, block_cols
         )
-    return spmv_ell_blocked_partial_ref(
-        cols, vals, x, y0, lo, hi, block_cols, n_buckets
-    )
+    return spmv_ell_blocked_partial_ref(cols, vals, x, y0, lo, hi,
+                                        block_cols)
 
 
 def spmv_blocked_skip(
@@ -141,18 +187,8 @@ def spmv_blocked_skip(
     lists ``[P, NRB, M]`` and counts ``[P, NRB]``
     (:func:`repro_torch.sparse.device.row_block_bucket_map`).  ``x``
     covers buckets [base, base + len(x)/block_cols)."""
-    _check_stacked(cols, vals, x)
-    if x.shape[-1] % block_cols:
-        raise ValueError(
-            f"x length {x.shape[-1]} not a multiple of block_cols "
-            f"{block_cols}"
-        )
-    if cols.shape[-1] % n_buckets:
-        raise ValueError(
-            f"cols width {cols.shape[-1]} not divisible by n_buckets "
-            f"{n_buckets}"
-        )
-    P_, R = cols.shape[:2]
+    _check_bucketed(cols, vals, x, block_cols, n_buckets)
+    P_, _, R, _ = cols.shape
     br = min(int(block_rows), R)
     nrb = -(-R // br)
     if (bucket_lists.dim() != 3
@@ -163,17 +199,15 @@ def spmv_blocked_skip(
             f"{tuple(bucket_counts.shape)}: expected [{P_}, {nrb}, M] / "
             f"[{P_}, {nrb}] for {R} rows in blocks of {br}"
         )
-    if y0 is not None and y0.shape != cols.shape[:2]:
-        raise ValueError(
-            f"y0 {tuple(y0.shape)}: expected {tuple(cols.shape[:2])}"
-        )
+    if y0 is not None and y0.shape != (P_, R):
+        raise ValueError(f"y0 {tuple(y0.shape)}: expected {(P_, R)}")
     operands = [cols, vals, x, bucket_lists, bucket_counts]
     if use_kernel(*operands, *([] if y0 is None else [y0])):
         return cuda.spmv_ell_blocked_skip(
-            cols, vals, x, bucket_lists, bucket_counts, n_buckets,
-            block_cols, br, bucket_base, y0,
+            cols, vals, x, bucket_lists, bucket_counts, block_cols, br,
+            bucket_base, y0,
         )
     return spmv_ell_blocked_skip_ref(
-        cols, vals, x, bucket_lists, bucket_counts, n_buckets, block_cols,
-        br, bucket_base, y0,
+        cols, vals, x, bucket_lists, bucket_counts, block_cols, br,
+        bucket_base, y0,
     )

@@ -17,7 +17,10 @@ Two device layouts:
   fill the leading buckets, ghost columns the *trailing* buckets, so the
   halo-dependent partial products come last.  Per-bucket nonzero widths
   (``bucket_K``) are padded to one uniform K; padding entries are
-  (in-bucket col 0, val 0.0).
+  (in-bucket col 0, val 0.0).  The host form keeps the reference's
+  ``[P, R, C*K]``; the card holds it bucket-major, ``[P, C, R, K]``
+  (:func:`~repro_torch.kernels.spmv_ell.ops.to_bucket_major`), made once
+  when :func:`make_distributed_spmv` moves it there.
 
 Vectors are ``[P, pad]`` tensors as produced from :func:`pack_vector`,
 zero-padded per block.
@@ -62,6 +65,7 @@ from ..kernels.spmv_ell.ops import (
     spmv_blocked,
     spmv_blocked_partial,
     spmv_blocked_skip,
+    to_bucket_major,
 )
 from .csr import CSR
 from .partition import PartitionedCSR
@@ -643,12 +647,14 @@ def _make_distributed_spmv_blocked(
     bucket-skipping kernel whenever :func:`row_block_bucket_map` shows at
     least one row block skipping at least one bucket of its window (banded
     operators touch few buckets per row block); otherwise the dense
-    blocked/partial kernels stream every bucket.
+    blocked/partial kernels stream every bucket.  The operator goes to
+    ``device`` bucket-major, once: every product of the returned function
+    reads that one copy.
     """
-    cols = torch.as_tensor(ell.cols, device=device)
-    vals = torch.as_tensor(ell.vals, device=device)
     bc = ell.block_cols
     C, Cl = ell.n_buckets, ell.n_local_buckets
+    cols = to_bucket_major(ell.cols, C, device)
+    vals = to_bucket_major(ell.vals, C, device)
     local_fill = Cl * bc - ell.in_pad
     ghost_fill = ell.n_ghost_buckets * bc - ell.ghost_pad
 

@@ -46,6 +46,47 @@ def test_chip_smoke_phases_run_on_cpu():
         assert rec["bound_ms"] > 0.0 and rec["bound_by"] == "bytes"
     assert set(res["solves"]) == set(chip_smoke.SOLVES)
     assert all(n == 0 for n in res["launches"].values())   # no card
+    assert len(res["planted"]) == 2        # both planted faults refused
+    for errs in res["planted"].values():
+        assert all(e > chip_smoke.TOL[d] for d, e in errs.items())
+
+
+@pytest.mark.parametrize("name", ["spmv_ell_blocked",
+                                  "spmv_ell_blocked_partial"])
+def test_cold_copies_compute_the_same_call(name):
+    """The cold-L2 copies that the device times rotate through: enough of
+    them, none sharing the call's storage, each giving the call's result
+    bit for bit through the wrapper and its library product (K3's copy
+    rebased to its bucket range); a call larger than the L2 is its own."""
+    import numpy as np
+
+    chip_smoke = _chip_smoke()
+    rng = np.random.default_rng(7)
+    P_, C, R, K, bc = 2, 6, 40, 3, 8
+    t = torch.as_tensor
+    cols = t(rng.integers(0, bc, (P_, C, R, K)), dtype=torch.int32)
+    vals = t(rng.standard_normal((P_, C, R, K)))
+    a = dict(cols=cols, vals=vals, block_cols=bc)
+    if name == "spmv_ell_blocked":
+        a["x"] = t(rng.standard_normal((P_, C * bc)))
+    else:
+        a.update(x=t(rng.standard_normal((P_, 3 * bc))),
+                 y0=t(rng.standard_normal((P_, R))), bucket_lo=2,
+                 bucket_hi=5, n_buckets=C)
+    nbytes = chip_smoke.work(name, a)[0]
+    assert chip_smoke.cold_copies(name, a, nbytes, nbytes) == [a]
+    copies = chip_smoke.cold_copies(name, a, nbytes, 3 * nbytes)
+    assert len(copies) == 2 * 3
+    want = chip_smoke.kernel_call(name, a)
+    lib = chip_smoke.library_call(name, a)().reshape(want.shape)
+    for c in copies:
+        assert c["cols"].data_ptr() != cols.data_ptr()
+        assert c["vals"].is_contiguous()
+        assert torch.equal(chip_smoke.kernel_call(name, c), want)
+        assert torch.equal(
+            chip_smoke.library_call(name, c)().reshape(want.shape), lib)
+    if name == "spmv_ell_blocked_partial":
+        assert copies[0]["cols"].shape == (P_, 3, R, K)
 
 
 def test_chip_smoke_serve_phase_runs_on_cpu():

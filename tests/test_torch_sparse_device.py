@@ -165,6 +165,48 @@ def test_distributed_spmv_matches_host_product(strategy, layout, overlap):
         np.testing.assert_allclose(y, mat.matvec(x), rtol=1e-12, atol=1e-12)
 
 
+@pytest.mark.parametrize("overlap", [False, True])
+@pytest.mark.parametrize("block_cols", [16, 512])
+def test_distributed_spmv_blocked_takes_bucket_major_operands(
+        monkeypatch, block_cols, overlap):
+    """The blocked layouts of the test above reach K2-K4 bucket-major:
+    every product reads one [P, C, R, K] copy of the operator, made when
+    the function was built, equal to ``to_bucket_major`` of the host
+    layout."""
+    from repro_torch.amg import build_hierarchy
+    from repro_torch.kernels.spmv_ell.ops import to_bucket_major
+
+    A = diffusion_2d(32, 48)
+    h = build_hierarchy(CSR(A.shape, A.indptr, A.indices, A.data),
+                        max_levels=2)
+    mat = h.levels[0].A
+    part = port_part.partition_csr(mat, 8)
+    ell = dev.partitioned_to_ell_blocked(part, block_cols)
+    coll = NeighborAlltoallV.init(part.pattern, Topology(8, 4), "standard")
+    seen = []
+    for name in ("spmv_blocked", "spmv_blocked_partial",
+                 "spmv_blocked_skip"):
+        def record(cols, vals, *args, _fn=getattr(dev, name), **kw):
+            seen.append((cols, vals))
+            return _fn(cols, vals, *args, **kw)
+        monkeypatch.setattr(dev, name, record)
+    fn = dev.make_distributed_spmv(ell, coll.bind("cpu"), overlap=overlap,
+                                   device="cpu")
+    x = np.random.default_rng(5).normal(size=mat.ncols)
+    xg = torch.as_tensor(dev.pack_vector(part.col_offsets, ell.in_pad, x))
+    for _ in range(2):
+        y = dev.unpack_vector(part.offsets, fn(xg).numpy())
+        np.testing.assert_allclose(y, mat.matvec(x), rtol=1e-12, atol=1e-12)
+    assert len(seen) == 2 * len(fn.kernels)
+    want = [to_bucket_major(a, ell.n_buckets) for a in (ell.cols, ell.vals)]
+    for cols, vals in seen:
+        assert cols.shape == (8, ell.n_buckets, ell.row_pad, ell.K)
+        assert cols.data_ptr() == seen[0][0].data_ptr()
+        assert vals.data_ptr() == seen[0][1].data_ptr()
+        for got, w in zip((cols, vals), want):
+            assert torch.equal(got, w)
+
+
 def test_distributed_spmv_requires_exchange_for_ghosts(parts):
     _, pp, _ = parts
     with pytest.raises(ValueError, match="exchange required"):

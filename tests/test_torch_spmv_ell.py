@@ -1,9 +1,11 @@
 """The port's plain versions of the ELL SpMV kernels K1-K4 against
-``repro``'s Pallas kernels (interpret mode on the CPU), plus the ops'
-input validation and device dispatch.
+``repro``'s Pallas kernels (interpret mode on the CPU), plus the layout
+conversion, the ops' input validation and device dispatch.
 
 Shapes follow ``test_kernel_spmv_overlap.py``.  Every case stacks P=2 ranks
-with different data and compares each rank with its own Pallas call.  Both
+with different data and compares each rank with its own Pallas call.  The
+Pallas kernels take the reference's ``[R, C*K]`` bucketed layout; the port
+takes the same operator bucket-major (``ops.to_bucket_major``).  Both
 sides run in float64 (JAX's x64 mode is scoped to each call) and agree to
 1e-12: only the order of the sums may differ.
 """
@@ -64,6 +66,11 @@ def t(a):
     return torch.as_tensor(np.ascontiguousarray(a))
 
 
+def bm(a, C):
+    """The reference's [P, R, C*K] bucketed operand, bucket-major."""
+    return ops.to_bucket_major(np.ascontiguousarray(a), C)
+
+
 def skip_lists(vals, C, K, br):
     """Per-rank live-bucket lists of every row block (padding = 0)."""
     R = vals.shape[1]
@@ -102,7 +109,7 @@ def test_flat_vs_pallas(R, K, N, br):
 def test_blocked_vs_pallas(R, C, K, bc, br):
     rng = np.random.default_rng(2)
     cols, vals, x = random_bucketed(rng, R, C, K, bc, empty=(1,))
-    got = ops.spmv_blocked(t(cols), t(vals), t(x), bc).numpy()
+    got = ops.spmv_blocked(bm(cols, C), bm(vals, C), t(x), bc).numpy()
     for p in range(P):
         want = pallas64(pallas.spmv_ell_blocked, cols[p], vals[p], x[p],
                         block_cols=bc, block_rows=br)
@@ -122,7 +129,7 @@ def test_partial_vs_pallas(R, C, K, bc, br, lo, hi):
     xs = x[:, lo * bc: hi * bc]
     y0_t = t(y0)
     got = ops.spmv_blocked_partial(
-        t(cols), t(vals), t(xs), y0_t, bucket_lo=lo, bucket_hi=hi,
+        bm(cols, C), bm(vals, C), t(xs), y0_t, bucket_lo=lo, bucket_hi=hi,
         n_buckets=C, block_cols=bc,
     )
     if hi == lo:
@@ -145,7 +152,7 @@ def test_skip_vs_pallas_with_empty_buckets(empty):
     lists, counts = skip_lists(vals, C, K, br)
     assert (counts < lists.shape[2]).any()
     got = ops.spmv_blocked_skip(
-        t(cols), t(vals), t(x), t(lists), t(counts), n_buckets=C,
+        bm(cols, C), bm(vals, C), t(x), t(lists), t(counts), n_buckets=C,
         block_cols=bc, block_rows=br,
     ).numpy()
     for p in range(P):
@@ -165,11 +172,12 @@ def test_skip_steps_past_count_add_exactly_zero():
     lists = np.tile(np.array([0, 1, 2], np.int32), (P, nrb, 1))
     counts = np.full((P, nrb), 1, np.int32)
     got = ops.spmv_blocked_skip(
-        t(cols), t(vals), t(x), t(lists), t(counts), n_buckets=C,
+        bm(cols, C), bm(vals, C), t(x), t(lists), t(counts), n_buckets=C,
         block_cols=bc, block_rows=br,
     ).numpy()
     only_first = ops.spmv_blocked_partial(
-        t(cols), t(vals), t(x[:, :bc]), torch.zeros(P, R, dtype=torch.float64),
+        bm(cols, C), bm(vals, C), t(x[:, :bc]),
+        torch.zeros(P, R, dtype=torch.float64),
         bucket_lo=0, bucket_hi=1, n_buckets=C, block_cols=bc,
     ).numpy()
     np.testing.assert_allclose(got, only_first, **TOL)
@@ -193,7 +201,7 @@ def test_skip_ghost_phase_carried():
     counts = np.full((P, nrb), C - base, np.int32)
     xg = x[:, base * bc:]
     got = ops.spmv_blocked_skip(
-        t(cols), t(vals), t(xg), t(lists), t(counts), n_buckets=C,
+        bm(cols, C), bm(vals, C), t(xg), t(lists), t(counts), n_buckets=C,
         block_cols=bc, bucket_base=base, y0=t(y0), block_rows=br,
     ).numpy()
     for p in range(P):
@@ -212,8 +220,9 @@ def test_skip_on_amg_matrix_uses_the_reference_bucket_map():
     lists, counts = row_block_bucket_map(bell, block_rows=16)
     assert lists.shape[2] < bell.n_buckets
     x = np.random.default_rng(10).normal(size=(P, bell.x_len))
+    C = bell.n_buckets
     got = ops.spmv_blocked_skip(
-        t(bell.cols), t(bell.vals), t(x), t(lists), t(counts),
+        bm(bell.cols, C), bm(bell.vals, C), t(x), t(lists), t(counts),
         n_buckets=bell.n_buckets, block_cols=bell.block_cols, block_rows=16,
     ).numpy()
     for p in range(P):
@@ -222,6 +231,32 @@ def test_skip_on_amg_matrix_uses_the_reference_bucket_map():
                         n_buckets=bell.n_buckets,
                         block_cols=bell.block_cols, block_rows=16)
         np.testing.assert_allclose(got[p], want, **TOL)
+
+
+@pytest.mark.parametrize("R,C,K,br", [(64, 5, 4, 16),
+                                      (97, 4, 3, 32)])   # ragged last block
+def test_bucket_major_round_trip(R, C, K, br):
+    """``to_bucket_major`` puts bucket b of a row block's rows in one
+    contiguous run, the ragged last row block too, and
+    ``from_bucket_major`` gives the reference's layout back exactly."""
+    rng = np.random.default_rng(11)
+    cols, vals, _ = random_bucketed(rng, R, C, K, 16)
+    for a in (cols, vals):
+        got = bm(a, C)
+        assert got.shape == (P, C, R, K) and got.is_contiguous()
+        assert got.dtype == t(a).dtype
+        np.testing.assert_array_equal(ops.from_bucket_major(got).numpy(), a)
+        flat = got.reshape(-1).numpy()
+        for p in range(P):
+            for b in range(C):
+                for r0 in range(0, R, br):
+                    nr = min(br, R - r0)
+                    start = ((p * C + b) * R + r0) * K
+                    np.testing.assert_array_equal(
+                        flat[start:start + nr * K],
+                        a[p, r0:r0 + nr, b * K:(b + 1) * K].ravel())
+    with pytest.raises(ValueError, match="n_buckets"):
+        ops.to_bucket_major(cols, C + 1)
 
 
 def test_csr_to_ell_equal():
@@ -237,14 +272,15 @@ def test_csr_to_ell_equal():
 
 # ----------------------------------------------------------- validation
 def _operands():
+    """Bucket-major cols/vals [P, 3, 16, 2] and x [P, 24]."""
     rng = np.random.default_rng(0)
     cols, vals, x = random_bucketed(rng, 16, 3, 2, 8)
-    return t(cols), t(vals), t(x)
+    return bm(cols, 3), bm(vals, 3), t(x)
 
 
 @pytest.mark.parametrize("call,match", [
     (lambda c, v, x: ops.spmv_blocked(c, v, x[:, :-1], 8), "multiple"),
-    (lambda c, v, x: ops.spmv_blocked(c[..., :-1], v[..., :-1], x, 8),
+    (lambda c, v, x: ops.spmv_blocked(c[:, :-1], v[:, :-1], x, 8),
      "not divisible"),
     (lambda c, v, x: ops.spmv_blocked_partial(
         c, v, x, torch.zeros(P, 16, dtype=torch.float64), bucket_lo=2,
@@ -253,7 +289,7 @@ def _operands():
         c, v, x, torch.zeros(P, 16, dtype=torch.float64), bucket_lo=0,
         bucket_hi=2, n_buckets=3, block_cols=8), "hi-lo"),
     (lambda c, v, x: ops.spmv_blocked_partial(
-        c[..., :-1], v[..., :-1], x[:, :8],
+        c[:, :-1], v[:, :-1], x[:, :8],
         torch.zeros(P, 16, dtype=torch.float64), bucket_lo=0, bucket_hi=1,
         n_buckets=3, block_cols=8), "n_buckets"),
     (lambda c, v, x: ops.spmv_blocked_partial(
@@ -264,15 +300,18 @@ def _operands():
         torch.ones(P, 1, dtype=torch.int32), n_buckets=3, block_cols=8),
      "multiple"),
     (lambda c, v, x: ops.spmv_blocked_skip(
-        c[..., :-1], v[..., :-1], x, torch.zeros(P, 1, 1, dtype=torch.int32),
+        c[:, :-1], v[:, :-1], x, torch.zeros(P, 1, 1, dtype=torch.int32),
         torch.ones(P, 1, dtype=torch.int32), n_buckets=3, block_cols=8),
      "n_buckets"),
     (lambda c, v, x: ops.spmv_blocked_skip(
         c, v, x, torch.zeros(P, 2, 1, dtype=torch.int32),
         torch.ones(P, 2, dtype=torch.int32), n_buckets=3, block_cols=8),
      "bucket_lists"),
-    (lambda c, v, x: ops.spmv(c[0], v[0], x[0]), r"\[P, R, W\]"),
-    (lambda c, v, x: ops.spmv(c, v, x[:1]), r"\[P, N\]"),
+    (lambda c, v, x: ops.spmv(c[0, 0], v[0, 0], x[0]), r"\[P, R, W\]"),
+    (lambda c, v, x: ops.spmv(c[:, 0], v[:, 0], x[:1]), r"\[P, N\]"),
+    (lambda c, v, x: ops.spmv_blocked(ops.from_bucket_major(c),
+                                      ops.from_bucket_major(v), x, 8),
+     "bucket-major"),
 ])
 def test_ops_reject_malformed_input(call, match):
     with pytest.raises(ValueError, match=match):
@@ -283,10 +322,10 @@ def test_plain_versions_reject_out_of_range_columns():
     """A column past a rank's own x raises instead of reading the next
     rank's values."""
     cols, vals, x = _operands()
-    bad = cols.clone()
+    bad = cols[:, 0].clone()             # a flat [P, R, K] operand
     bad[0, 0, 0] = x.shape[1]            # rank 0 reaches past its x
     with pytest.raises(RuntimeError, match="out of bounds"):
-        ops.spmv(bad, vals, x)
+        ops.spmv(bad, vals[:, 0], x)
 
 
 def test_dispatch_is_by_device():
