@@ -34,26 +34,30 @@ any phase fails:
    ``auto``, counting K5-K7 launches per prefill and decode step; replays
    every engine call of ``a2a`` and ``hier_dedup`` through the plain
    versions of K5-K7 with the same routing decisions (logits and greedy
-   tokens must agree) and through the kernels with a K6 and a K7 fault
-   planted in the binding (the oracle must refuse both); checks that
-   the modes agree under ample capacity; holds every K5-K7 call of one
-   prefill and one decode step, and edge cases, against the plain
-   versions in bf16 and float32, times the largest calls, and profiles a
-   short serve run;
+   tokens must agree) and through the kernels with a K6 fault and two K7
+   faults planted in the binding (``q_offset`` ignored; the decode
+   combine without its last key split; the oracle must refuse all
+   three); checks that the modes agree under ample capacity; holds every
+   K5-K7 call of one prefill and one decode step, and edge cases, against
+   the plain versions in bf16 and float32, times the largest calls (from
+   a cold L2), checks that K7 refuses a head dim it is not built for, and
+   profiles a short serve run;
 6. hybrid serve: draws zamba2-7b at full width and depth in bf16 on the
    card (seeded) and serves six requests through ``ServeEngine``, counting
-   K7 / K8 launches per prefill and decode step; holds every K7 / K8 call
-   of one prefill and one decode step, and edge cases, against the plain
-   versions in bf16 and float32, times the largest calls, and profiles a
-   short serve run; then, on the same weights in float32, replays every
-   engine call through the kernels and through the plain versions of K7
-   and K8 (logits and greedy tokens must agree) and through the kernels
-   with two K8 faults planted in the binding (the oracle must refuse
-   both);
+   K7 / K8 calls and CUDA launches per prefill and decode step; holds
+   every K7 / K8 call of one prefill and one decode step, and edge cases,
+   against the plain versions in bf16 and float32, times the largest
+   calls (from a cold L2), and profiles a short serve run; then, on the
+   same weights in float32, replays every engine call through the
+   kernels and through the plain versions of K7 and K8 (logits and greedy
+   tokens must agree) and through the kernels with two K8 faults planted
+   in the binding (the oracle must refuse both);
 7. checks that each path launched each of its kernels (the AMG solves
    the launches per V-cycle of ``VCYCLE_LAUNCHES``), and prints one JSON
-   line with every kernel's record: ``ms`` by CUDA events, ``device_ms``
-   and ``host_us`` (:func:`device_times`), bound, plain and library times.
+   line with every kernel's record: calls (``launches``) and
+   ``cuda_launches`` on the main path, ``ms`` by CUDA events,
+   ``device_ms`` and ``host_us`` (:func:`device_times`), bound, plain and
+   library times.
 
 Its last line is ``{"ok": true, "device": {...}}``.  It uses no JAX.
 """
@@ -371,6 +375,13 @@ def cold_copies(name: str, a: dict, nbytes: int, l2: int) -> list:
     n = -(-COLD_L2_PASSES * l2 // nbytes)
     if nbytes >= l2 or n <= 1:
         return [a]
+    if name in ("gather_rows", "combine_rows"):
+        # a K5 / K6 copy holds only the rows its indices read, the indices
+        # remapped onto them: the same rows summed in the same order
+        key = "x" if name == "gather_rows" else "buf"
+        rows, inv = torch.unique(a["idx"], return_inverse=True)
+        a = dict(a, **{key: a[key][rows.long()],
+                       "idx": inv.to(a["idx"].dtype)})
     if name == "spmv_ell_blocked_partial":
         lo, hi = a["bucket_lo"], a["bucket_hi"]
         a = dict(a, cols=a["cols"][:, lo:hi], vals=a["vals"][:, lo:hi],
@@ -811,6 +822,13 @@ SERVE_TOL = {"bfloat16": 2 ** -7, "float32": 1e-5}
 # kernel tolerance (tests/test_kernel_ssd.py), bf16 as SERVE_TOL
 SSD_TOL = {"bfloat16": 2 ** -7, "float32": 1e-4}
 SSD_CHUNK = 128                 # the reference kernel's chunk
+# The bf16 K7 prefill and K8 carry each fp32 operand of a tensor-core
+# product (K7's P; K8's M, S and w x) as bf16 hi + lo, to about 2^-17
+# (csrc/tile_mma.cuh).  Seen on a call's bf16 outputs: the share of them
+# that are not the correctly rounded float64 value.  Emulated on the CPU
+# (random bf16 inputs at the path's shapes), hi + lo misrounds some 0.2 %
+# and one bf16 rounding of those operands (the control) 30-38 %.
+SPLIT_SHARE = 0.02
 SERVE_SOURCES = {
     "gather_rows": ("src/repro_torch/csrc/moe_pack.cu",
                     "src/repro/kernels/moe_pack/moe_pack.py:39"),
@@ -915,6 +933,10 @@ def planted_faults() -> dict:
     import torch
 
     from repro_torch.kernels.flash_attention import attention
+    from repro_torch.kernels.flash_attention.ref import (
+        DECODE_SPLIT,
+        decode_splits,
+    )
     from repro_torch.kernels.moe_pack import combine
 
     def k6_drops_last_weight(buf, idx, w):
@@ -924,10 +946,25 @@ def planted_faults() -> dict:
     def k7_ignores_q_offset(q, k, v, **kw):
         return attention(q, k, v, **dict(kw, q_offset=0))
 
+    def k7_drops_last_split(q, k, v, **kw):
+        """A one-row call whose combine leaves out its last key split: the
+        keys of that split masked (with one split, every key)."""
+        if q.shape[2] != 1:
+            return attention(q, k, v, **kw)
+        Tk = k.shape[2]
+        kv_len = kw.get("kv_len")
+        begin, _, n = decode_splits(
+            Tk, Tk if kv_len is None else kv_len, kw.get("causal", True),
+            kw.get("window", 0), kw.get("q_offset", 0))
+        return attention(q, k, v, **dict(
+            kw, kv_len=begin + (n - 1) * DECODE_SPLIT))
+
     return {
         "K6 drops the last of its K weights": bound_kernels(
             combine=k6_drops_last_weight),
         "K7 ignores q_offset": bound_kernels(flash=k7_ignores_q_offset),
+        "K7's decode combine drops its last key split": bound_kernels(
+            flash=k7_drops_last_split),
     }
 
 
@@ -987,7 +1024,7 @@ def recording_engine(engine, on_card: bool, kernel_calls=None) -> list:
     logits (on the host), seconds and kernel launches are recorded; with
     ``kernel_calls``, also the K5-K7 calls of the first prefill and the
     first decode step."""
-    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels import CUDA_LAUNCHES, LAUNCHES
 
     calls: list = []
     prefill, decode = engine._prefill, engine._decode
@@ -996,7 +1033,7 @@ def recording_engine(engine, on_card: bool, kernel_calls=None) -> list:
         first = kernel_calls is not None and not any(
             c["kind"] == kind for c in calls)
         card_sync(on_card)
-        before = dict(LAUNCHES)
+        before, before_cuda = dict(LAUNCHES), dict(CUDA_LAUNCHES)
         t0 = time.perf_counter()
         with (recording_serve_kernel_calls(kernel_calls, kind) if first
               else contextlib.nullcontext()):
@@ -1004,7 +1041,9 @@ def recording_engine(engine, on_card: bool, kernel_calls=None) -> list:
             card_sync(on_card)
         rec.update(kind=kind, s=time.perf_counter() - t0,
                    logits=logits.float().cpu(),
-                   launches={k: LAUNCHES[k] - before[k] for k in LAUNCHES})
+                   launches={k: LAUNCHES[k] - before[k] for k in LAUNCHES},
+                   cuda_launches={k: CUDA_LAUNCHES[k] - before_cuda[k]
+                                  for k in CUDA_LAUNCHES})
         calls.append(rec)
         return logits, caches
 
@@ -1017,8 +1056,8 @@ def recording_engine(engine, on_card: bool, kernel_calls=None) -> list:
 
 
 def serve_summary(calls: list, kernels=tuple(SERVE_SOURCES)) -> dict:
-    """Prefill tokens/s, ms per decode step and launches per call of
-    ``kernels`` over the recorded engine calls."""
+    """Prefill tokens/s, ms per decode step, and calls and CUDA launches
+    per engine call of ``kernels``, over the recorded engine calls."""
     pre = [c for c in calls if c["kind"] == "prefill"]
     dec = [c for c in calls if c["kind"] == "decode"]
     out = dict(
@@ -1030,9 +1069,10 @@ def serve_summary(calls: list, kernels=tuple(SERVE_SOURCES)) -> dict:
     out["prefill_tok_s"] = out["prefill_tokens"] / max(out["prefill_s"],
                                                        1e-12)
     for tag, group in (("prefill", pre), ("decode", dec)):
-        per = {k: sum(c["launches"][k] for c in group) / max(1, len(group))
-               for k in kernels}
-        out[f"launches_per_{tag}"] = per
+        for count in ("launches", "cuda_launches"):
+            out[f"{count}_per_{tag}"] = {
+                k: sum(c[count][k] for c in group) / max(1, len(group))
+                for k in kernels}
     return out
 
 
@@ -1221,7 +1261,9 @@ def serve_kernel_call(name: str, a: dict):
         window=a["window"], kv_len=a["kv_len"], q_offset=a["q_offset"])
 
 
-def serve_plain_call(name: str, a: dict):
+def serve_plain_call(name: str, a: dict, operand=None):
+    """The plain version of the call; ``operand`` as K7's and K8's plain
+    versions take it (applied to their fp32 product operands)."""
     from repro_torch.kernels.flash_attention.ref import flash_attention_bh_ref
     from repro_torch.kernels.moe_pack.ref import (
         combine_rows_ref,
@@ -1230,14 +1272,16 @@ def serve_plain_call(name: str, a: dict):
     from repro_torch.kernels.ssd_scan import ssd_scan_ref
 
     if name == "ssd_scan_h":
-        return ssd_scan_ref(a["x"], a["dt"], a["A"], a["B"], a["C"])
+        return ssd_scan_ref(a["x"], a["dt"], a["A"], a["B"], a["C"],
+                            operand=operand)
     if name == "gather_rows":
         return gather_rows_ref(a["x"], a["idx"])
     if name == "combine_rows":
         return combine_rows_ref(a["buf"], a["idx"], a["w"])
     return flash_attention_bh_ref(
         a["q"], a["k"], a["v"], scale=a["scale"], causal=a["causal"],
-        window=a["window"], kv_len=a["kv_len"], q_offset=a["q_offset"])
+        window=a["window"], kv_len=a["kv_len"], q_offset=a["q_offset"],
+        operand=operand)
 
 
 def serve_library_call(name: str, a: dict):
@@ -1301,11 +1345,55 @@ def check_serve_call(name: str, a: dict, label: str) -> float:
     return abs_err
 
 
+def misrounded_share(got, exact) -> float:
+    """The share of ``got`` that differs from ``exact`` rounded to
+    ``got``'s dtype."""
+    if not got.numel():
+        return 0.0
+    return float((got != exact.to(got.dtype)).float().mean())
+
+
+def split_check(name: str, a: dict, label: str) -> dict:
+    """A bf16 K7 / K8 call held to its float64 value: the kernel may
+    misround at most ``SPLIT_SHARE`` of its outputs, and the control (the
+    plain version with its fp32 product operands rounded once to bf16)
+    must misround more, else the check cannot tell the split from one
+    rounding.  Returns the three shares (kernel, plain float32,
+    control)."""
+    import torch
+
+    def once(t):
+        return t.to(torch.bfloat16).to(t.dtype)
+
+    a = serve_cast(a, torch.bfloat16)
+    a64 = {k: v.to(torch.float64) if torch.is_tensor(v)
+           and v.is_floating_point() else v for k, v in a.items()}
+    exact = serve_plain_call(name, a64)
+    got = dict(
+        kernel=misrounded_share(serve_kernel_call(name, a), exact),
+        plain=misrounded_share(serve_plain_call(name, a), exact),
+        control=misrounded_share(serve_plain_call(name, a, once), exact))
+    log(f"  {name} {label} call, hi + lo split: bf16 outputs off the "
+        f"correctly rounded float64 value: kernel {got['kernel']:.5f}, plain "
+        f"float32 {got['plain']:.5f}, control (operands rounded once to "
+        f"bf16) {got['control']:.5f}; limit {SPLIT_SHARE}")
+    if not got["kernel"] <= SPLIT_SHARE:
+        fail(f"{name} {label}: the kernel misrounds {got['kernel']} of its "
+             f"bf16 outputs, above {SPLIT_SHARE}")
+    if not got["control"] > SPLIT_SHARE:
+        fail(f"{name} {label}: the control misrounds {got['control']}, not "
+             f"above {SPLIT_SHARE}: the check cannot see the split")
+    return got
+
+
 def time_serve_call(name: str, a: dict, on_card: bool) -> dict:
     """Kernel, plain and library ms of the call (library None where no
     PyTorch call computes it), its bound, and the kernel's and the
-    library's own device ms and the kernel's host us per call
-    (:func:`device_times`)."""
+    library's own device ms from a cold L2 (each call of
+    :func:`device_times` on the next of the :func:`cold_copies`) and the
+    kernel's host us per call."""
+    import torch
+
     nbytes, flops = serve_work(name, a)
     dname = str(a["buf" if name == "combine_rows" else "q"
                   if name == "flash_attention_bh" else "x"].dtype).split(".")[1]
@@ -1313,9 +1401,17 @@ def time_serve_call(name: str, a: dict, on_card: bool) -> dict:
     t_ops = flops / PEAK_FLOPS[dname]
     library = serve_library_call(name, a)
     kernel = lambda: serve_kernel_call(name, a)
-    t = device_times({"kernel": kernel, **({} if library is None
-                                            else {"library": library})},
-                     on_card)
+    copies = [a]
+    if on_card:
+        dev = next(v.device for v in a.values() if torch.is_tensor(v))
+        l2 = torch.cuda.get_device_properties(dev).L2_cache_size
+        copies = cold_copies(name, a, nbytes, l2)
+    args = itertools.cycle(copies)
+    fns = {"kernel": lambda: serve_kernel_call(name, next(args))}
+    if library is not None:
+        libs = itertools.cycle([serve_library_call(name, c) for c in copies])
+        fns["library"] = lambda: next(libs)()
+    t = device_times(fns, on_card)
     return dict(
         ms=time_ms(kernel, on_card),
         plain_ms=time_ms(lambda: serve_plain_call(name, a), on_card),
@@ -1325,6 +1421,7 @@ def time_serve_call(name: str, a: dict, on_card: bool) -> dict:
         mbytes=nbytes / 1e6, gflop=flops / 1e9,
         device_ms=t["kernel"][0], host_us=t["kernel"][1],
         library_device_ms=t.get("library", (None,))[0],
+        cold_copies=len(copies),
     )
 
 
@@ -1366,11 +1463,14 @@ def serve_kernel_phase(recorded: dict, on_card: bool) -> dict:
             f"{t['mbytes']:.2f} MB, {t['gflop']:.3f} GFLOP): kernel "
             f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library "
             f"{lib}, bound {t['bound_ms']:.4f} ms ({t['bound_by']}); device "
-            f"ms {fmt_ms(t['device_ms'])} (library "
+            f"ms from a cold L2 ({t['cold_copies']} copies) "
+            f"{fmt_ms(t['device_ms'])} (library "
             f"{fmt_ms(t['library_device_ms'])}), host us per call "
             f"{fmt_ms(t['host_us'])}")
         if phase == "prefill":
             results[name].update(t)
+            if name in ("flash_attention_bh", "ssd_scan_h"):
+                results[name]["split"] = split_check(name, a, phase)
         else:
             results[name]["decode"] = t
     return results
@@ -1379,8 +1479,9 @@ def serve_kernel_phase(recorded: dict, on_card: bool) -> dict:
 def serve_edge_calls(device, gen) -> list:
     """K5-K7 calls the served path does not make: a ragged row count, a row
     width that takes the 2-byte copy unit, all-pad indices, K = 1, GQA
-    head dims 64 / 128 / 256 and 24 (padded to 32), fully masked attention
-    rows, and q_offset > 0 with kv_len < Tk."""
+    head dims 64 / 128 / 256 and 112 in prefill with Tq not a multiple of
+    the kernel's 64 rows, fully masked attention rows, and q_offset > 0
+    with kv_len < Tk."""
     import torch
 
     def rnd(*shape):
@@ -1410,13 +1511,30 @@ def serve_edge_calls(device, gen) -> list:
     ]
     for d, Tq, Tk, causal, window, kv_len, q_offset in (
             (64, 40, 40, True, 0, 40, 0), (128, 17, 300, True, 0, 201, 184),
-            (256, 33, 64, False, 0, 50, 0), (24, 12, 48, True, 0, 12, 0),
+            (256, 33, 64, False, 0, 50, 0), (112, 100, 150, True, 0, 150, 0),
             (192, 16, 64, True, 4, 44, 40), (192, 1, 512, True, 0, 77, 76)):
         calls.append(("flash_attention_bh", dict(
             q=rnd(6, Tq, d), k=rnd(6, Tk, d), v=rnd(6, Tk, d),
             scale=d ** -0.5, causal=causal, window=window, kv_len=kv_len,
             q_offset=q_offset)))
     return calls
+
+
+def unbuilt_head_dim_raises(device) -> None:
+    """K7 on the card refuses a head dim its source is not built for (24)
+    rather than padding it."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import flash_attention_bh
+
+    t = torch.zeros(2, 8, 24, device=device, dtype=torch.bfloat16)
+    try:
+        flash_attention_bh(t, t, t, scale=1.0, causal=True)
+    except ValueError as e:
+        log(f"kernel flash_attention_bh edge    head dim 24 refused: {e}")
+        return
+    fail("flash_attention_bh: head dim 24, which the kernel is not built "
+         "for, was not refused")
 
 
 # ------------------------------------------------------ hybrid serve phase
@@ -1477,7 +1595,9 @@ def hybrid_faults(chunk: int) -> dict:
 def hybrid_edge_calls(device, gen) -> list:
     """K7 / K8 calls the served path does not make: K8 at T = 1, T below
     the chunk, a ragged last chunk, G = 2 and mamba2-780m's shape (H 48,
-    P 64, N 128); K7 at head dim 112 (padded to 128) in decode."""
+    P 64, N 128), and at T = 1, 63, 65 and 129 for both (P, N) (around the
+    kernel's chunk of 64); K7's decode at kv_len 1, 63, 65 and 512 (one,
+    one, two and eight key splits) at head dims 112 and 192."""
     import torch
     import torch.nn.functional as tf
 
@@ -1487,14 +1607,20 @@ def hybrid_edge_calls(device, gen) -> list:
     calls = []
     for Bt, T, H, G, N in ((2, 1, 8, 1, 64), (2, 37, 8, 1, 64),
                            (1, 200, 8, 1, 64), (2, 150, 8, 2, 64),
-                           (2, 300, 48, 1, 128)):
+                           (2, 300, 48, 1, 128), (2, 63, 8, 1, 64),
+                           (2, 65, 8, 1, 64), (2, 129, 8, 1, 64),
+                           (2, 1, 8, 1, 128), (2, 63, 8, 1, 128),
+                           (2, 65, 8, 1, 128), (2, 129, 8, 1, 128)):
         calls.append(("ssd_scan_h", dict(
             x=rnd(Bt, T, H, 64), dt=tf.softplus(rnd(Bt, T, H)),
             A=-torch.exp(0.5 * rnd(H)), B=rnd(Bt, T, G, N),
             C=rnd(Bt, T, G, N))))
-    calls.append(("flash_attention_bh", dict(
-        q=rnd(8, 1, 112), k=rnd(8, 512, 112), v=rnd(8, 512, 112),
-        scale=112 ** -0.5, causal=True, window=0, kv_len=77, q_offset=76)))
+    for d in (112, 192):
+        for kv_len in (1, 63, 65, 512):
+            calls.append(("flash_attention_bh", dict(
+                q=rnd(8, 1, d), k=rnd(8, 512, d), v=rnd(8, 512, d),
+                scale=d ** -0.5, causal=True, window=0, kv_len=kv_len,
+                q_offset=kv_len - 1)))
     return calls
 
 
@@ -1554,7 +1680,7 @@ def hybrid_run(device: str = "cuda", reduced_config: bool = False) -> dict:
     import torch
 
     from repro_torch import configs
-    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels import CUDA_LAUNCHES, LAUNCHES, reset_launches
     from repro_torch.models import Model
     from repro_torch.serve import ServeEngine
 
@@ -1595,6 +1721,7 @@ def hybrid_run(device: str = "cuda", reduced_config: bool = False) -> dict:
     wall = time.perf_counter() - t0
     check_served(done, sizes, cfg.vocab, "hybrid serve")
     launches = {k: LAUNCHES[k] for k in kernels_of_path}
+    cuda_launches = {k: CUDA_LAUNCHES[k] for k in kernels_of_path}
     summ = serve_summary(calls, kernels_of_path)
     summ.update(wall_s=wall, tokens={r.rid: r.generated for r in done})
     log(f"hybrid serve: {len(done)} requests in {wall:.2f} s; "
@@ -1602,8 +1729,10 @@ def hybrid_run(device: str = "cuda", reduced_config: bool = False) -> dict:
         f"{summ['prefill_tok_s']:.1f} prefill tokens/s; "
         f"{summ['decode_steps']} decode steps, {summ['decode_ms']:.3f} ms "
         f"per step; launches per prefill {summ['launches_per_prefill']}, "
-        f"per decode step {summ['launches_per_decode']}; kernels launched "
-        f"by the served path: {launches}")
+        f"per decode step {summ['launches_per_decode']} (CUDA launches "
+        f"{summ['cuda_launches_per_prefill']} and "
+        f"{summ['cuda_launches_per_decode']}); kernels launched by the "
+        f"served path: {launches}")
     if on_card:
         want = {"prefill": {"flash_attention_bh": n_seg,
                             "ssd_scan_h": cfg.n_layers},
@@ -1656,8 +1785,9 @@ def hybrid_run(device: str = "cuda", reduced_config: bool = False) -> dict:
             f"{fault_chunk}): max |logit diff| / max |logit| "
             f"{got['rel_err']:.3e}, greedy tokens differ on {got['differ']} "
             f"of {got['sure']} rows with a clear margin")
-    return dict(summary=summ, launches=launches, kernels=kernels,
-                profile=prof, n_params=n_params, n_bytes=n_bytes)
+    return dict(summary=summ, launches=launches, cuda_launches=cuda_launches,
+                kernels=kernels, profile=prof, n_params=n_params,
+                n_bytes=n_bytes)
 
 
 def profile_serve(model, params, sizes: dict, on_card: bool) -> dict:
@@ -1709,7 +1839,7 @@ def serve_run(device: str = "cuda", reduced_config: bool = False) -> dict:
 
     from repro_torch import configs
     from repro_torch.core.costmodel import LASSEN
-    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels import CUDA_LAUNCHES, LAUNCHES, reset_launches
     from repro_torch.models import Mesh, Model, serving
     from repro_torch.serve import ServeEngine
 
@@ -1770,10 +1900,14 @@ def serve_run(device: str = "cuda", reduced_config: bool = False) -> dict:
             f"{summ['decode_steps']} decode steps, {summ['decode_ms']:.3f} "
             f"ms per step; launches per prefill "
             f"{summ['launches_per_prefill']}, per decode step "
-            f"{summ['launches_per_decode']}")
+            f"{summ['launches_per_decode']} (CUDA launches "
+            f"{summ['cuda_launches_per_prefill']} and "
+            f"{summ['cuda_launches_per_decode']})")
     card_sync(on_card)
     launches = {k: LAUNCHES[k] for k in SERVE_SOURCES}
-    log(f"kernels launched by the served path: {launches}")
+    cuda_launches = {k: CUDA_LAUNCHES[k] for k in SERVE_SOURCES}
+    log(f"kernels launched by the served path: {launches} (CUDA launches "
+        f"{cuda_launches})")
 
     for mode in ORACLE_MODES:
         model, eng, calls, decisions = engines[mode]
@@ -1826,13 +1960,15 @@ def serve_run(device: str = "cuda", reduced_config: bool = False) -> dict:
             "within tolerance in bf16 and float32")
     prof = None
     if on_card:
+        unbuilt_head_dim_raises(device)
         prof = profile_serve(engines["auto"][0], params, sizes, on_card)
         log(f"serve profile (auto, 4 requests): wall {prof['wall_ms']:.1f} "
             f"ms, device busy {prof['busy_ms']:.1f} ms, idle share "
             f"{prof['idle_share']:.3f}, {prof['device_ops']} device ops; "
             f"most device ms: {prof['top_device']}")
-    return dict(modes=modes, launches=launches, kernels=kernels,
-                profile=prof, n_params=n_params, n_bytes=n_bytes)
+    return dict(modes=modes, launches=launches, cuda_launches=cuda_launches,
+                kernels=kernels, profile=prof, n_params=n_params,
+                n_bytes=n_bytes)
 
 
 def run(device: str = "cuda", rows: int = 524_288, block_cols: int = 512,
@@ -1844,7 +1980,7 @@ def run(device: str = "cuda", rows: int = 524_288, block_cols: int = 512,
     import torch
 
     from repro_torch.amg import build_hierarchy, paper_problem
-    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels import CUDA_LAUNCHES, LAUNCHES, reset_launches
 
     on_card = device == "cuda"
     t0 = time.perf_counter()
@@ -1859,10 +1995,11 @@ def run(device: str = "cuda", rows: int = 524_288, block_cols: int = 512,
     if on_card:
         torch.cuda.synchronize()
     launches = {k: LAUNCHES[k] for k in REPLACES}
+    cuda_launches = {k: CUDA_LAUNCHES[k] for k in REPLACES}
     kernels, planted = path_kernel_phase(recorded, on_card)
     synthetic_kernel_phase(h, device, block_cols, on_card, kernels)
-    return dict(kernels=kernels, launches=launches, solves=solves,
-                planted=planted)
+    return dict(kernels=kernels, launches=launches,
+                cuda_launches=cuda_launches, solves=solves, planted=planted)
 
 
 def build_kernels() -> None:
@@ -1932,7 +2069,9 @@ def main() -> int:
         rec = res["kernels"][name]
         records.append(dict(
             name=name, route="cuda", source=SOURCE, replaces=REPLACES[name],
-            launches=res["launches"][name], max_abs_err=rec["max_abs_err"],
+            launches=res["launches"][name],
+            cuda_launches=res["cuda_launches"][name],
+            max_abs_err=rec["max_abs_err"],
             **{k: rec[k] for k in timing}))
     # K7 runs on both serve paths: its launches are both paths' and its
     # times those of its largest DeepSeek prefill call
@@ -1945,9 +2084,12 @@ def main() -> int:
         records.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=sum(p["launches"].get(name, 0) for p in (serve, hybrid)),
+            cuda_launches=sum(p["cuda_launches"].get(name, 0)
+                              for p in (serve, hybrid)),
             max_abs_err=err, **{k: rec[k] for k in timing},
             **({"decode": {k: rec["decode"][k] for k in timing}}
-               if "decode" in rec else {})))
+               if "decode" in rec else {}),
+            **({"split": rec["split"]} if "split" in rec else {})))
     print(json.dumps({"kernels": records}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -7,204 +7,336 @@
 //   intra-chunk:  y[t]  = sum_{s<=t} (C_t . B_s) exp(l_t - l_s) dt_s x_s
 //   inter-chunk:  y[t] += exp(l_t) C_t S_prev
 //   state update: S = exp(l_L) S_prev + sum_s exp(l_L - l_s) dt_s B_s (x) x_s
-// The state S [N, P] is fp32 and carried across the chunks in order; all
-// arithmetic is fp32 and y is rounded once, to x's type, on store.
+// The state S [N, P] is fp32 and carried across the chunks in order; y is
+// rounded once, to x's type, on store.
 //
-// Layout of the work.  The kernel takes the model's own layout: x and y
-// [Bt, T, H, P], dt [Bt, T, H] and B / C [Bt, T, G, N], with A [H].  It
-// reads the group of head h as h / (H / G) and bounds the ragged last
-// chunk itself, so the caller makes none of the Pallas wrapper's copies
-// (B and C repeated over heads, heads moved to the front, T padded).  The
-// Pallas grid (heads, chunks), whose sequential chunk dim carried the
-// state in VMEM scratch, becomes one block per (batch, head) that walks
-// the chunks in a loop with the state in shared memory: a prefill of 4
-// slots of zamba2-7b gives 448 blocks on 132 SMs.  Per chunk of kChunk
-// steps the block stages x, B, C and dt in shared memory as fp32 (zero
-// past the ragged end, where dt = 0 decays nothing and adds nothing),
-// takes l by an in-block prefix sum, builds the [L, L] intra-chunk matrix
-// M over the pairs s <= t only (so the exponent l_t - l_s is never
-// positive; the masked pairs are never exponentiated), then writes
-// y = M x + exp(l_t) C S_prev, and last updates S.  Each thread owns one
-// column p of y and of S and a strided set of rows, so every shared read
-// in the two products is a broadcast or a run of consecutive words; the
-// rows of B, C and M carry one word of padding, so 32 lanes reading 32
-// rows of B hit 32 banks.  The kernel's chunk (64) is its own choice: any
-// chunk computes the same function.
+// Bound.  Bytes: x and y once each, plus dt, B and C: for zamba2-7b's
+// prefill (Bt 4, T 400, H 112, P 64, N 64, bf16) 47 MB, 14 us at
+// 3.35 TB/s.  Operations: some 10 GFLOP, 10 us on the tensor cores.  So
+// the kernel has to keep the whole card busy with both, and the state and
+// the [L, L] intra-chunk matrix out of device memory.
 //
-// Bound.  Bytes: x and y once each, plus dt, B and C; for zamba2-7b's
-// prefill (Bt 4, T about 430, H 112, P 64, N 64, bf16) some 50 MB, about
-// 15 us at 3.35 TB/s.  Operations: 2 L^2 N + 2 L^2 P + 4 L N P a chunk of
-// L per (batch, head), some 10 GFLOP at L = 128, about 10 us on the tensor
-// cores.  This first kernel runs on the CUDA cores in fp32 out of shared
-// memory, so it is bound by its own shared-memory traffic; tensor cores
-// for C B^T and M x, TMA staging and a split over chunks with a second
-// pass for the state are later work.
+// Layout of the work.  One block per (batch, head) walks the chunks of
+// kChunk = 64 steps in order with the head's fp32 state on the chip, so no
+// state goes through device memory: zamba2-7b's prefill gives 448 blocks,
+// two an SM.  Measured on the card, the scan is bound by the latency of
+// its chain of dependent steps per chunk, not by bytes or by the tensor
+// cores: blocks over slices of 16 columns of P (1,792 of them, four an
+// SM, each recomputing the chunk's C B^T, decays and staging) ran slower
+// than whole heads (PERF.md, section 6).  A chunk's x, B, C and dt are
+// staged in shared memory by cp.async (zeros past the ragged end, where
+// dt = 0 decays nothing and adds nothing), the next chunk's while this one
+// is computed; B and C ([Bt, T, G, N], one group for all 112 heads) come
+// from the L2.  Four warps each own 16 steps t of the chunk and N / 4 rows n of
+// the state:
+//   1. l: each warp scans dt * A over the chunk by shuffles (no block
+//      barrier rounds) into its own copy in shared memory, in log2 units
+//      so that every decay is one exp2; the block writes w x, with
+//      w_s = exp(l_L - l_s) dt_s, to shared memory;
+//   2. C B^T for its rows, the column tiles s <= t only; scaled in
+//      registers to M[t][s] = (C_t . B_s) exp(l_t - l_s) dt_s over s <= t
+//      (the masked pairs are never exponentiated, so the exponent is never
+//      positive);
+//   3. y = exp(l_t) C S_prev + M x, M feeding the product from registers;
+//   4. after a block barrier (every read of S_prev done, w x written),
+//      S = exp(l_L) S + B^T (w x), the warp's rows of the state kept in
+//      registers across the chunks and stored for the next chunk's step 3.
+// Two block barriers a chunk.  All four products run as 16 x 8 x 16 warp
+// tiles (tile_mma.cuh): in bf16 on the tensor cores, an fp32 operand
+// (M, S_prev, w x) split into two bf16 halves, so every product keeps its
+// fp32 operand to about 2^-17 as the reference's fp32 products do; S and
+// w x, which every warp reads, are split once where they are stored.  In
+// float32 (the oracle replay's type) the same skeleton runs fp32 FMAs.
+// The kernel's chunk (64) is its own choice: any chunk computes the same
+// function.
 //
-// Shared memory: S [N][P] plus x [L][P], B and C [L][N + 1], M [L][L + 1]
-// and three [L] vectors, in fp32: 83,456 bytes for N = 64 and 132,608 for
-// N = 128 at P = 64, above the 48 KB default, so the launcher opts in.
-// Two blocks fit an SM at N = 64 (the launch bounds cap the registers at
-// 128 a thread to match), one at N = 128.
+// Shared memory per block: two stages of C and B [L][N + 16 bytes], x
+// [L][P + 16 bytes] and dt [L]; the state [N][P + 16 bytes] and w x
+// [L][P + 16 bytes], as bf16 hi and lo (one fp32 array in float32); four
+// copies of l [L]: 93,696 bytes at (bf16, P 64, N 64), two blocks an SM;
+// 144,896 at (bf16, N 128), one; 140,800 and 223,744 in float32.  128
+// threads a block.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "tile_mma.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kChunk = 64;        // time steps per chunk, L
+using tile::Frag;
 
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ void store(float a, float* o) { *o = a; }
-__device__ __forceinline__ void store(float a, __nv_bfloat16* o) {
-  *o = __float2bfloat16(a);
-}
+constexpr int kChunk = 64;                 // time steps per chunk, L
+constexpr int kWarps = kChunk / 16;        // 16 steps a warp
+static_assert(kChunk == 64, "the scan gives each lane two steps");
+constexpr int kThreads = 32 * kWarps;
 
-// Floats of dynamic shared memory for head dim P and state dim N.
-constexpr int smem_floats(int P, int N) {
-  return N * P                    // S, the carried state [N][P]
-         + kChunk * P             // x of the chunk [L][P]
-         + 2 * kChunk * (N + 1)   // B and C of the chunk [L][N + 1]
-         + kChunk * (kChunk + 1)  // M, the intra-chunk matrix [L][L + 1]
-         + 3 * kChunk;            // l, dt and the state-update weights w
+__device__ __forceinline__ void store2(float a, float b, float* o) {
+  *reinterpret_cast<float2*>(o) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(float a, float b, __nv_bfloat16* o) {
+  *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(a, b);
 }
 
 template <typename E, int P, int N>
-__global__ void __launch_bounds__(kThreads, 2)
+struct Smem {
+  using T = typename tile::Staged<E>::T;            // staged fp32 operands
+  static constexpr int kPad = 16 / (int)sizeof(E);  // 16 bytes a row
+  static constexpr int kLdN = N + kPad;             // C and B row stride
+  static constexpr int kLdX = P + kPad;             // x row stride
+  static constexpr int kLdT = P + 16 / (int)sizeof(T);   // S, w x
+  static constexpr int kStage =                     // bytes of one stage
+      (2 * kChunk * kLdN + kChunk * kLdX) * (int)sizeof(E) + kChunk * 4;
+  static constexpr int kArray = (N + kChunk) * kLdT;   // S, then w x
+  static constexpr int kBytes =
+      2 * kStage + tile::Staged<E>::kArrays * kArray * (int)sizeof(T) +
+      kWarps * kChunk * 4;
+};
+
+template <typename E, int P, int N>
+__global__ void __launch_bounds__(kThreads)
 ssd_scan_kernel(const E* __restrict__ x, const float* __restrict__ dt,
                 const float* __restrict__ A, const E* __restrict__ Bm,
                 const E* __restrict__ Cm, E* __restrict__ y, int T, int H,
                 int G) {
-  static_assert(kThreads % P == 0, "a pass of the block covers whole rows");
-  constexpr int kRows = kThreads / P;     // rows one pass of the block owns
-  static_assert(kChunk % kRows == 0 && N % kRows == 0, "rows per thread");
-  static_assert(kChunk <= kThreads, "one thread per step of the chunk");
-  constexpr int kYRows = kChunk / kRows;  // rows of y per thread
-  constexpr int kSRows = N / kRows;       // rows of S per thread
-  constexpr int kNB = N + 1;              // padded rows of B and C
-  constexpr int kLM = kChunk + 1;         // padded rows of M
+  using Sm = Smem<E, P, N>;
+  using TS = typename Sm::T;
+  constexpr int kLdN = Sm::kLdN, kLdX = Sm::kLdX, kLdT = Sm::kLdT;
+  constexpr int kVec = 16 / (int)sizeof(E);     // elements a 16-byte copy
+  constexpr int kNT = N / 16;                   // k-steps over N
+  constexpr int kMT = N / (16 * kWarps);        // state m-tiles a warp
+  constexpr int kPT = P / 8;                    // n-tiles over P
+  static_assert(N % (16 * kWarps) == 0 && P % 16 == 0, "shapes");
 
-  extern __shared__ float smem[];
-  float* S = smem;
-  float* xs = S + N * P;
-  float* Bs = xs + kChunk * P;
-  float* Cs = Bs + kChunk * kNB;
-  float* M = Cs + kChunk * kNB;
-  float* l = M + kChunk * kLM;
-  float* dts = l + kChunk;
-  float* w = dts + kChunk;
+  extern __shared__ __align__(16) unsigned char smem[];
+  auto Cs = [&](int s) {
+    return reinterpret_cast<E*>(smem + s * Sm::kStage);
+  };
+  auto Bs = [&](int s) { return Cs(s) + kChunk * kLdN; };
+  auto Xs = [&](int s) { return Bs(s) + kChunk * kLdN; };
+  auto Ds = [&](int s) {
+    return reinterpret_cast<float*>(Xs(s) + kChunk * kLdX);
+  };
+  // the state [N][kLdT] then w x [L][kLdT], hi (and in bf16 lo)
+  TS* Shi = reinterpret_cast<TS*>(smem + 2 * Sm::kStage);
+  TS* Slo = Shi + (tile::Staged<E>::kArrays - 1) * Sm::kArray;
+  TS* Whi = Shi + N * kLdT;
+  TS* Wlo = Slo + N * kLdT;
+  float* lw = reinterpret_cast<float*>(
+                  Shi + tile::Staged<E>::kArrays * Sm::kArray) +
+              (threadIdx.x / 32) * kChunk;            // this warp's l
 
-  const int tid = threadIdx.x;
-  const int b = blockIdx.x / H;
-  const int h = blockIdx.x - b * H;
-  const int g = h / (H / G);
-  const float a = A[h];
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, c = lane % 4;
+  const int b = blockIdx.x / H, h = blockIdx.x - b * H;
+  const int grp = h / (H / G);
+  const float a = A[h] * 1.4426950408889634f;   // A log2(e): l in log2 units
   const long long x_row = (long long)H * P;     // x / y: one time step
   const long long bc_row = (long long)G * N;    // B / C: one time step
   const E* xb = x + (long long)b * T * x_row + (long long)h * P;
   E* yb = y + (long long)b * T * x_row + (long long)h * P;
-  const E* Bb = Bm + (long long)b * T * bc_row + (long long)g * N;
-  const E* Cb = Cm + (long long)b * T * bc_row + (long long)g * N;
+  const E* Bb = Bm + (long long)b * T * bc_row + (long long)grp * N;
+  const E* Cb = Cm + (long long)b * T * bc_row + (long long)grp * N;
   const float* dtb = dt + (long long)b * T * H + h;
 
-  const int p = tid % P;     // the column of y and S this thread owns
-  const int r0 = tid / P;    // its first row; the others follow kRows apart
-
-  for (int i = tid; i < N * P; i += kThreads) S[i] = 0.0f;
-
-  for (int t0 = 0; t0 < T; t0 += kChunk) {
+  auto stage = [&](int t0, int s) {
     const int len = min(kChunk, T - t0);
+    constexpr int kRowN = N / kVec, kRowX = P / kVec;
+    for (int i = tid; i < kChunk * kRowN; i += kThreads) {
+      const int t = i / kRowN, q = (i - t * kRowN) * kVec;
+      const bool ok = t < len;
+      const long long off = ok ? (long long)(t0 + t) * bc_row + q : 0;
+      tile::cp16(Cs(s) + t * kLdN + q, Cb + off, ok);
+      tile::cp16(Bs(s) + t * kLdN + q, Bb + off, ok);
+    }
+    for (int i = tid; i < kChunk * kRowX; i += kThreads) {
+      const int t = i / kRowX, q = (i - t * kRowX) * kVec;
+      const bool ok = t < len;
+      tile::cp16(Xs(s) + t * kLdX + q,
+                 xb + (ok ? (long long)(t0 + t) * x_row + q : 0), ok);
+    }
     if (tid < kChunk) {
-      const float d = tid < len ? dtb[(long long)(t0 + tid) * H] : 0.0f;
-      dts[tid] = d;
-      l[tid] = d * a;
+      const bool ok = tid < len;
+      tile::cp4(Ds(s) + tid, dtb + (ok ? (long long)(t0 + tid) * H : 0), ok);
     }
-    for (int i = tid; i < kChunk * P; i += kThreads) {
-      const int t = i / P, c = i - t * P;
-      xs[i] = t < len ? to_float(xb[(long long)(t0 + t) * x_row + c]) : 0.0f;
-    }
-    for (int i = tid; i < kChunk * N; i += kThreads) {
-      const int t = i / N, n = i - t * N;
-      const long long off = (long long)(t0 + t) * bc_row + n;
-      Bs[t * kNB + n] = t < len ? to_float(Bb[off]) : 0.0f;
-      Cs[t * kNB + n] = t < len ? to_float(Cb[off]) : 0.0f;
-    }
-    __syncthreads();
-    // l: inclusive prefix sum over the chunk (Hillis-Steele)
-    for (int off = 1; off < kChunk; off <<= 1) {
-      float v = 0.0f;
-      if (tid < kChunk) v = l[tid] + (tid >= off ? l[tid - off] : 0.0f);
-      __syncthreads();
-      if (tid < kChunk) l[tid] = v;
-      __syncthreads();
-    }
-    const float l_last = l[kChunk - 1];
-    if (tid < kChunk) w[tid] = expf(l_last - l[tid]) * dts[tid];
-    // M[t][s] = (C_t . B_s) exp(l_t - l_s) dt_s over s <= t, else 0
-    for (int i = tid; i < kChunk * kChunk; i += kThreads) {
-      const int t = i / kChunk, s = i - t * kChunk;
-      float m = 0.0f;
-      if (s <= t) {
-        float dot = 0.0f;
-#pragma unroll 8
-        for (int n = 0; n < N; ++n) dot += Cs[t * kNB + n] * Bs[s * kNB + n];
-        m = dot * expf(l[t] - l[s]) * dts[s];
-      }
-      M[t * kLM + s] = m;
-    }
-    __syncthreads();
-    // y[t][p] = sum_s M[t][s] x[s][p] + exp(l_t) sum_n C[t][n] S_prev[n][p]
+    tile::cp_commit();
+  };
+
+  // the warp's rows of the state, [kMT m-tiles][kPT n-tiles][4]
+  float st[kMT][kPT][4];
+#pragma unroll
+  for (int m = 0; m < kMT; ++m)
+#pragma unroll
+    for (int n = 0; n < kPT; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) st[m][n][i] = 0.0f;
+  for (int i = tid; i < tile::Staged<E>::kArrays * N * kLdT; i += kThreads) {
+    (i < N * kLdT ? Shi[i] : Slo[i - N * kLdT]) = TS(0.0f);
+  }
+
+  const int n_chunks = (T + kChunk - 1) / kChunk;
+  stage(0, 0);
+  const int r0 = 16 * warp;                   // the warp's steps t
+  const int nrow = kMT * 16 * warp;           // the warp's state rows n
+  for (int ci = 0; ci < n_chunks; ++ci) {
+    const int s = ci & 1;
+    const int t0 = ci * kChunk;
+    const int len = min(kChunk, T - t0);
+    tile::cp_wait_all();
+    __syncthreads();   // chunk ci staged; chunk ci - 1 done by every warp
+    if (ci + 1 < n_chunks) stage(t0 + kChunk, s ^ 1);
+    const E* Cc = Cs(s);
+    const E* Bc = Bs(s);
+    const E* Xc = Xs(s);
+    const float* dtc = Ds(s);
+
+    // 1. l: inclusive prefix sum of dt * A log2(e), lane holding steps
+    //    2i and 2i+1; then the block's w x, 8 elements at a time
     {
-      float intra[kYRows], inter[kYRows];
+      const float2 d = *reinterpret_cast<const float2*>(dtc + 2 * lane);
+      const float v0 = d.x * a, v1 = d.y * a;
+      float incl = v0 + v1;
 #pragma unroll
-      for (int k = 0; k < kYRows; ++k) intra[k] = inter[k] = 0.0f;
-      for (int s = 0; s < kChunk; ++s) {
-        const float xv = xs[s * P + p];
-#pragma unroll
-        for (int k = 0; k < kYRows; ++k) {
-          intra[k] += M[(r0 + k * kRows) * kLM + s] * xv;
-        }
+      for (int off = 1; off < 32; off <<= 1) {
+        const float u = __shfl_up_sync(tile::kFull, incl, off);
+        if (lane >= off) incl += u;
       }
-      for (int n = 0; n < N; ++n) {
-        const float sv = S[n * P + p];
+      float excl = __shfl_up_sync(tile::kFull, incl, 1);
+      if (lane == 0) excl = 0.0f;
+      lw[2 * lane] = excl + v0;
+      lw[2 * lane + 1] = incl;
+      __syncwarp();
+    }
+    const float l_last = lw[kChunk - 1];
+    for (int e = tid; e < kChunk * kPT; e += kThreads) {
+      const int sw = e / kPT, p0 = (e % kPT) * 8;
+      const float w = exp2f(l_last - lw[sw]) * dtc[sw];
+      float xv[8];
+      tile::load8(Xc + sw * kLdX + p0, xv);
 #pragma unroll
-        for (int k = 0; k < kYRows; ++k) {
-          inter[k] += Cs[(r0 + k * kRows) * kNB + n] * sv;
-        }
+      for (int i = 0; i < 8; i += 2) {
+        tile::store_staged(Whi + sw * kLdT + p0 + i, Wlo + sw * kLdT + p0 + i,
+                           w * xv[i], w * xv[i + 1]);
       }
+    }
+    const int ta = r0 + g, tb = ta + 8;
+    const float l_ta = lw[ta], l_tb = lw[tb];
+
+    // 2. M = (C B^T) o decay o dt over s <= t, the warp's 16 rows
+    typename Frag<E>::A cf[kNT];
 #pragma unroll
-      for (int k = 0; k < kYRows; ++k) {
-        const int t = r0 + k * kRows;
-        if (t < len) {
-          store(intra[k] + expf(l[t]) * inter[k],
-                yb + (long long)(t0 + t) * x_row + p);
+    for (int k = 0; k < kNT; ++k) {
+      tile::load_a(cf[k], Cc + r0 * kLdN + 16 * k, kLdN);
+    }
+    float m[kChunk / 8][4];
+#pragma unroll
+    for (int j = 0; j < kChunk / 8; ++j) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) m[j][i] = 0.0f;
+      if (j <= 2 * warp + 1) {
+#pragma unroll
+        for (int k = 0; k < kNT; ++k) {
+          typename Frag<E>::B bf;
+          tile::load_b(bf, Bc + 8 * j * kLdN + 16 * k, kLdN);
+          tile::mma(m[j], cf[k], bf);
+        }
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int sc = 8 * j + 2 * c + e;
+          const float ls = lw[sc], ds = dtc[sc];
+          m[j][e] = sc <= ta ? m[j][e] * exp2f(l_ta - ls) * ds : 0.0f;
+          m[j][2 + e] = sc <= tb ? m[j][2 + e] * exp2f(l_tb - ls) * ds : 0.0f;
         }
       }
     }
-    __syncthreads();   // every read of S_prev is done
-    // S = exp(l_L) S_prev + sum_s w_s B_s (x) x_s, w_s = exp(l_L - l_s) dt_s
+
+    // 3. y = exp(l_t) C S_prev + M x
+    float yo[kPT][4];
+#pragma unroll
+    for (int n = 0; n < kPT; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) yo[n][i] = 0.0f;
+#pragma unroll
+    for (int k = 0; k < kNT; ++k) {
+#pragma unroll
+      for (int n = 0; n < kPT; ++n) {
+        const int off = 16 * k * kLdT + 8 * n;
+        tile::mma_staged_b_trans(yo[n], cf[k], Shi + off, Slo + off, kLdT);
+      }
+    }
     {
-      const float decay = expf(l_last);
-      float acc[kSRows];
+      const float ea = exp2f(l_ta), eb = exp2f(l_tb);
 #pragma unroll
-      for (int k = 0; k < kSRows; ++k) {
-        acc[k] = decay * S[(r0 + k * kRows) * P + p];
+      for (int n = 0; n < kPT; ++n) {
+        yo[n][0] *= ea;
+        yo[n][1] *= ea;
+        yo[n][2] *= eb;
+        yo[n][3] *= eb;
       }
-      for (int s = 0; s < kChunk; ++s) {
-        const float xv = xs[s * P + p] * w[s];
+    }
 #pragma unroll
-        for (int k = 0; k < kSRows; ++k) {
-          acc[k] += Bs[s * kNB + r0 + k * kRows] * xv;
+    for (int k = 0; k < kChunk / 16; ++k) {
+      if (k <= warp) {
+        const float av[8] = {m[2 * k][0], m[2 * k][1], m[2 * k][2],
+                             m[2 * k][3], m[2 * k + 1][0], m[2 * k + 1][1],
+                             m[2 * k + 1][2], m[2 * k + 1][3]};
+        typename Frag<E>::SplitA ma;
+        tile::split_a(ma, av);
+#pragma unroll
+        for (int n = 0; n < kPT; ++n) {
+          typename Frag<E>::B xf;
+          tile::load_b_trans(xf, Xc + 16 * k * kLdX + 8 * n, kLdX);
+          tile::mma(yo[n], ma, xf);
+        }
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < kPT; ++n) {
+      const int p = 8 * n + 2 * c;
+      if (ta < len) {
+        store2(yo[n][0], yo[n][1], yb + (long long)(t0 + ta) * x_row + p);
+      }
+      if (tb < len) {
+        store2(yo[n][2], yo[n][3], yb + (long long)(t0 + tb) * x_row + p);
+      }
+    }
+    __syncthreads();   // every read of S_prev done; w x written
+
+    // 4. S = exp(l_L) S + B^T (w x): the warp's kMT m-tiles of rows n
+    {
+      const float decay = exp2f(l_last);
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+        for (int n = 0; n < kPT; ++n)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) st[mt][n][i] *= decay;
+#pragma unroll
+      for (int k = 0; k < kChunk / 16; ++k) {
+#pragma unroll
+        for (int mt = 0; mt < kMT; ++mt) {
+          typename Frag<E>::A bt;
+          tile::load_a_trans(bt, Bc + 16 * k * kLdN + nrow + 16 * mt, kLdN);
+#pragma unroll
+          for (int n = 0; n < kPT; ++n) {
+            const int off = 16 * k * kLdT + 8 * n;
+            tile::mma_staged_b_trans(st[mt][n], bt, Whi + off, Wlo + off,
+                                     kLdT);
+          }
         }
       }
 #pragma unroll
-      for (int k = 0; k < kSRows; ++k) S[(r0 + k * kRows) * P + p] = acc[k];
+      for (int mt = 0; mt < kMT; ++mt) {
+#pragma unroll
+        for (int n = 0; n < kPT; ++n) {
+          const int off = (nrow + 16 * mt + g) * kLdT + 8 * n + 2 * c;
+          tile::store_staged(Shi + off, Slo + off, st[mt][n][0], st[mt][n][1]);
+          tile::store_staged(Shi + off + 8 * kLdT, Slo + off + 8 * kLdT,
+                             st[mt][n][2], st[mt][n][3]);
+        }
+      }
     }
-    __syncthreads();   // S is updated; the chunk's staging may be reused
   }
 }
 
@@ -212,15 +344,19 @@ template <typename E, int P, int N>
 int launch(const void* x, const float* dt, const float* A, const void* B,
            const void* C, void* y, int Bt, int T, int H, int G,
            cudaStream_t stream) {
-  constexpr int bytes = (int)sizeof(float) * smem_floats(P, N);
-  cudaError_t err = cudaFuncSetAttribute(
-      ssd_scan_kernel<E, P, N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
-  if (err != cudaSuccess) {
-    cudaGetLastError();   // clear it: the launch below is not made
-    return (int)err;
+  constexpr int bytes = Smem<E, P, N>::kBytes;
+  auto kernel = ssd_scan_kernel<E, P, N>;
+  static bool attr_set = false;
+  if (!attr_set) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) {
+      cudaGetLastError();   // clear it: the launch below is not made
+      return (int)err;
+    }
+    attr_set = true;
   }
-  ssd_scan_kernel<E, P, N><<<Bt * H, kThreads, bytes, stream>>>(
+  kernel<<<Bt * H, kThreads, bytes, stream>>>(
       static_cast<const E*>(x), dt, A, static_cast<const E*>(B),
       static_cast<const E*>(C), static_cast<E*>(y), T, H, G);
   return (int)cudaGetLastError();
@@ -251,7 +387,8 @@ const char* repro_cuda_error_string(int err) {
 }
 
 // K8: x / y [Bt, T, H, P] and B / C [Bt, T, G, N] in bf16, dt [Bt, T, H]
-// and A [H] in fp32; all contiguous (checked by the wrapper).
+// and A [H] in fp32; all contiguous and 16-byte aligned (checked by the
+// wrapper).
 int repro_ssd_scan_bf16(const void* x, const float* dt, const float* A,
                         const void* B, const void* C, void* y, int Bt, int T,
                         int H, int G, int P, int N, void* stream) {

@@ -8,9 +8,10 @@ Dispatch is on the tensors' device (:func:`use_kernel`): CPU tensors take the
 plain version, CUDA tensors the kernel.  There is no fallback: a kernel that
 fails to build or launch raises.
 
-:data:`LAUNCHES` counts kernel launches by kernel name.  A wrapper adds one
+:data:`LAUNCHES` counts kernel calls by kernel name.  A wrapper adds one
 where it launches its kernel and nowhere else, so a run can show that its
-main path went through the kernels.
+main path went through the kernels.  :data:`CUDA_LAUNCHES` counts the CUDA
+kernel launches those calls made (K7's one-row decode makes two a call).
 """
 from __future__ import annotations
 
@@ -30,10 +31,14 @@ LAUNCHES: Dict[str, int] = {
 }
 
 
+CUDA_LAUNCHES: Dict[str, int] = dict.fromkeys(LAUNCHES, 0)
+
+
 def reset_launches() -> None:
     """Set every launch count to 0."""
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+        CUDA_LAUNCHES[name] = 0
 
 
 def use_kernel(*tensors: torch.Tensor) -> bool:

@@ -2,11 +2,12 @@
 
 Each source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface, on the first CUDA call (never at import), under
-``build/repro_torch/`` in the checkout, keyed on a hash of the source.  It is
-loaded with ``ctypes``.  Every exported launcher returns the CUDA error code
-of its launch (``cudaGetLastError``) and every source exports
-``repro_cuda_error_string``; :meth:`CudaLibrary.launch` raises on a non-zero
-code and counts the launch in :data:`repro_torch.kernels.LAUNCHES`.
+``build/repro_torch/`` in the checkout, keyed on a hash of the source and
+of the shared headers (``csrc/*.cuh``).  It is loaded with ``ctypes``.
+Every exported launcher returns the CUDA error code of its launch
+(``cudaGetLastError``) and every source exports ``repro_cuda_error_string``;
+:meth:`CudaLibrary.launch` raises on a non-zero code and counts the call in
+:data:`repro_torch.kernels.LAUNCHES`.
 """
 from __future__ import annotations
 
@@ -20,7 +21,7 @@ from typing import Dict, List, Optional
 
 import torch
 
-from . import LAUNCHES
+from . import CUDA_LAUNCHES, LAUNCHES
 
 PKG = Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
@@ -59,7 +60,10 @@ class CudaLibrary:
         """Compile the source (unless this version is already built) and
         return the library's path; the compiler's output lands in
         :attr:`build_log`."""
-        digest = hashlib.sha256(self.source.read_bytes()).hexdigest()[:16]
+        h = hashlib.sha256(self.source.read_bytes())
+        for header in sorted(CSRC.glob("*.cuh")):
+            h.update(header.read_bytes())
+        digest = h.hexdigest()[:16]
         out = BUILD_DIR / f"lib{self.source.stem}-{digest}.so"
         if out.exists():
             return out
@@ -89,9 +93,11 @@ class CudaLibrary:
         return self._lib
 
     def launch(self, kernel: str, fn_name: str, device: torch.device,
-               *args) -> None:
+               *args, cuda_launches: int = 1) -> None:
         """Call launcher ``fn_name`` on ``device``'s current stream; raise if
-        the launch reports an error, else count it under ``kernel``."""
+        the launch reports an error, else count the call under ``kernel``
+        in :data:`LAUNCHES` and its ``cuda_launches`` kernel launches in
+        :data:`CUDA_LAUNCHES`."""
         lib = self.library()
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
@@ -101,6 +107,7 @@ class CudaLibrary:
             raise RuntimeError(f"{kernel}: kernel launch failed: CUDA error "
                                f"{err} ({msg})")
         LAUNCHES[kernel] += 1
+        CUDA_LAUNCHES[kernel] += cuda_launches
 
 
 def check_cuda(name: str, **tensors: torch.Tensor) -> torch.device:

@@ -1,20 +1,19 @@
-"""Public attention op: validation, GQA broadcast, head-dim padding, dispatch.
+"""Public attention op: validation, GQA broadcast, dispatch.
 
 :func:`attention` takes ``[B, H, T, d]`` tensors as ``repro``'s
 ``kernels.flash_attention.ops.attention`` does: it broadcasts the kv heads
 over their query-head groups and flattens (batch, heads) for the kernel.
 The Pallas wrapper also pads the sequence dims to its block sizes; the CUDA
-kernel masks the ragged edges itself, so the port pads only the head dim,
-with zeros, up to the next head dim the kernel is built for (zero columns
-add nothing to the scores and are sliced off the output).  CPU tensors go to the plain
-version in :mod:`.ref`, CUDA tensors to the kernel in :mod:`.cuda`.
+kernel masks the ragged edges itself and is built for each head dim the
+served models use (``cuda.HEAD_DIMS``), so the port pads nothing; another
+head dim raises.  CPU tensors go to the plain version in :mod:`.ref`, CUDA
+tensors to the kernel in :mod:`.cuda`.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
-import torch.nn.functional as tf
 
 from .. import use_kernel
 from . import cuda
@@ -32,7 +31,7 @@ def flash_attention_bh(
         raise ValueError(f"flash_attention_bh: q {tuple(q.shape)} / k "
                          f"{tuple(k.shape)} / v {tuple(v.shape)}: expected "
                          "[BH, Tq, d] and two equal [BH, Tk, d]")
-    Tk, d = k.shape[1], q.shape[2]
+    Tk = k.shape[1]
     kv_len = Tk if kv_len is None else int(kv_len)
     if not 0 <= kv_len <= Tk or int(window) < 0 or int(q_offset) < 0:
         raise ValueError(f"flash_attention_bh: kv_len {kv_len} (Tk {Tk}), "
@@ -41,17 +40,9 @@ def flash_attention_bh(
         return flash_attention_bh_ref(q, k, v, scale=scale, causal=causal,
                                       window=window, kv_len=kv_len,
                                       q_offset=q_offset)
-    dims = [D for D in cuda.HEAD_DIMS if D >= d]
-    if not dims:
-        raise ValueError(f"flash_attention_bh: head dim {d}, above the "
-                         f"kernel's {cuda.HEAD_DIMS[-1]}")
-    pad = dims[0] - d
-    if pad:
-        q, k, v = (tf.pad(t, (0, pad)) for t in (q, k, v))
-    out = cuda.flash_attention_bh(
+    return cuda.flash_attention_bh(
         q.contiguous(), k.contiguous(), v.contiguous(), scale, causal,
         int(window), kv_len, int(q_offset))
-    return out[..., :d] if pad else out
 
 
 def attention(

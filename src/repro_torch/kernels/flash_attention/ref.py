@@ -7,10 +7,25 @@ A row whose every key is masked outputs 0.  It is the CPU path of
 :mod:`repro_torch.kernels.flash_attention.ops` and the value the CUDA kernel
 is held against on the card; :func:`attention_ref` is the plain version of
 ``ops.attention``, which a model can be bound to as its oracle.
+
+The kernel computes a call with one query row (a decode step) split over
+its keys: :func:`decode_splits` cuts the row's visible keys into splits of
+``DECODE_SPLIT``, :func:`flash_decode_partials_ref` reduces each split to
+a partial ``(m, l, acc)`` and :func:`flash_decode_combine_ref` combines
+them; :func:`flash_decode_ref` is the two in turn, the same function as
+:func:`flash_attention_bh_ref` at ``Tq = 1``.
+
+``operand``, where given, is applied to the softmax weights P before the
+P V product: the chip smoke's control rounds them once to bf16, which the
+kernel must not do.
 """
 from __future__ import annotations
 
+from typing import Callable, Optional, Tuple
+
 import torch
+
+DECODE_SPLIT = 64       # keys per split of a one-row call (kSplit)
 
 
 def attention_mask(Tq: int, Tk: int, causal: bool, window: int,
@@ -36,6 +51,7 @@ def flash_attention_bh_ref(
     window: int = 0,
     kv_len: int | None = None,
     q_offset: int = 0,
+    operand: Optional[Callable] = None,
 ) -> torch.Tensor:
     """K7 over flattened (batch * heads): out [BH, Tq, d] in q's dtype."""
     Tq, Tk = q.shape[1], k.shape[1]
@@ -49,6 +65,8 @@ def flash_attention_bh_ref(
     m = torch.where(torch.isinf(m), torch.zeros_like(m), m)
     p = torch.exp(s - m)                       # masked keys: exp(-inf) = 0
     l = torch.sum(p, dim=-1, keepdim=True)
+    if operand is not None:
+        p = operand(p)
     out = torch.einsum("bqk,bkd->bqd", p, v.to(cdt))
     out = out / torch.where(l == 0, torch.ones_like(l), l)
     return out.to(q.dtype)
@@ -78,3 +96,74 @@ def attention_ref(
         v.reshape(B * Hq, Tk, d), scale=d ** -0.5 if scale is None else scale,
         causal=causal, window=window, kv_len=kv_len, q_offset=q_offset)
     return out.reshape(B, Hq, Tq, d)
+
+
+def decode_splits(Tk: int, kv_len: int, causal: bool, window: int,
+                  q_offset: int, split: int = DECODE_SPLIT
+                  ) -> Tuple[int, int, int]:
+    """(begin, end, splits) of a one-row call: the row at ``q_offset`` sees
+    the keys [begin, end), cut into ``splits`` pieces of ``split`` keys
+    from ``begin`` (at least one, which is empty when no key is seen)."""
+    end = min(int(kv_len), int(Tk))
+    if causal:
+        end = min(end, int(q_offset) + 1)
+    begin = max(0, int(q_offset) - int(window) + 1) if window > 0 else 0
+    return begin, end, max(1, -(-(end - begin) // split))
+
+
+def flash_decode_partials_ref(
+    q: torch.Tensor,          # [BH, 1, d]
+    k: torch.Tensor,          # [BH, Tk, d]
+    v: torch.Tensor,          # [BH, Tk, d]
+    *,
+    scale: float,
+    causal: bool,
+    window: int = 0,
+    kv_len: int | None = None,
+    q_offset: int = 0,
+    split: int = DECODE_SPLIT,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Each split's partial in at least float32: m [BH, S] the max score
+    (-inf where the split sees no key), l [BH, S] the sum of
+    exp(score - m), acc [BH, S, d] the sum of exp(score - m) v."""
+    BH, Tq, d = q.shape
+    Tk = k.shape[1]
+    if Tq != 1:
+        raise ValueError(f"flash_decode_partials_ref: {Tq} query rows, "
+                         "expected 1")
+    kv_len = Tk if kv_len is None else int(kv_len)
+    begin, end, n = decode_splits(Tk, kv_len, causal, int(window),
+                                  int(q_offset), split)
+    cdt = torch.promote_types(q.dtype, torch.float32)
+    keys = begin + torch.arange(n * split, device=q.device)
+    seen = keys < end
+    keys = keys.clamp(max=max(Tk - 1, 0))
+    kk, vv = k[:, keys].to(cdt), v[:, keys].to(cdt)
+    s = torch.einsum("bd,bkd->bk", q[:, 0].to(cdt), kk) * scale
+    s = s.masked_fill(~seen, float("-inf")).reshape(BH, n, split)
+    m = torch.amax(s, dim=-1)
+    p = torch.exp(s - torch.where(torch.isinf(m), torch.zeros_like(m),
+                                  m)[..., None])
+    acc = torch.einsum("bns,bnsd->bnd", p, vv.reshape(BH, n, split, d))
+    return m, p.sum(dim=-1), acc
+
+
+def flash_decode_combine_ref(m: torch.Tensor, l: torch.Tensor,
+                             acc: torch.Tensor, dtype) -> torch.Tensor:
+    """The partials of each row combined: out [BH, 1, d] in ``dtype``,
+    sum_s acc_s exp(m_s - M) / sum_s l_s exp(m_s - M) with M the row's
+    max; 0 where no split saw a key."""
+    M = torch.amax(m, dim=1, keepdim=True)
+    w = torch.exp(m - torch.where(torch.isinf(M), torch.zeros_like(M), M))
+    den = (w * l).sum(dim=1)[:, None]
+    out = (w[..., None] * acc).sum(dim=1)
+    out = out / torch.where(den == 0, torch.ones_like(den), den)
+    return out[:, None].to(dtype)
+
+
+def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     **kw) -> torch.Tensor:
+    """A one-row call split over its keys and combined: equal to
+    :func:`flash_attention_bh_ref` at ``Tq = 1``."""
+    return flash_decode_combine_ref(*flash_decode_partials_ref(q, k, v, **kw),
+                                    q.dtype)

@@ -3,7 +3,8 @@
 The source is built and loaded by :class:`repro_torch.kernels.build.CudaLibrary`
 on the first CUDA call (never at import).  The wrapper checks what the
 launch needs (one CUDA device, contiguity, x / B / C in one of bf16 or f32,
-dt and A in f32, a (P, N) the source is built for, sizes within int32),
+dt and A in f32, a (P, N) the source is built for, 16-byte aligned x, B
+and C, sizes within int32),
 allocates y with ``torch.empty``, launches on the current stream, raises if
 the launch reports an error, and counts the launch in
 :data:`repro_torch.kernels.LAUNCHES`.  Shapes are validated by
@@ -41,6 +42,8 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if (P_, N) not in SHAPES:
         raise ValueError(f"ssd_scan_h: (P, N) = ({P_}, {N}), expected one "
                          f"of {SHAPES}")
+    if any(t.data_ptr() % 16 for t in (x, B, C)):
+        raise ValueError("ssd_scan_h: x/B/C not 16-byte aligned")
     y = torch.empty_like(x)
     if y.numel():
         LIBRARY.launch("ssd_scan_h", _FN[x.dtype], device, x.data_ptr(),

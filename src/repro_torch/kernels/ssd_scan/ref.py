@@ -20,9 +20,15 @@ The decay ``exp(l_t - l_s)`` is masked *before* ``exp``: only the pairs
 ``ssd_chunked_ref`` computes ``exp(l_t - l_s) * causal`` (``ref.py:61``);
 at chunk 128 with dt around 1 the masked-out exponents pass 88, ``exp``
 overflows and ``inf * 0`` is NaN (ROADMAP Queue 3).  Everything is
-computed in float32 and rounded once to x's dtype.
+computed in float32 (float64 for float64 x) and rounded once to x's dtype.
+``operand``, where given, is applied to each fp32 intermediate that enters
+a product (M, the state S entering a chunk, the weighted inputs w x): the
+chip smoke's control rounds them once to bf16, which the kernel must not
+do.
 """
 from __future__ import annotations
+
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as tf
@@ -49,8 +55,8 @@ def ssd_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
 
 def ssd_chunked_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
-                    B: torch.Tensor, C: torch.Tensor,
-                    chunk: int = 128) -> torch.Tensor:
+                    B: torch.Tensor, C: torch.Tensor, chunk: int = 128,
+                    operand: Optional[Callable] = None) -> torch.Tensor:
     """The chunked form over chunks of ``chunk`` steps (T a multiple of
     it): x [H, T, P], dt [H, T], A [H], B / C [H, T, N] -> y [H, T, P]."""
     H, T, P = x.shape
@@ -59,11 +65,13 @@ def ssd_chunked_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         raise ValueError(f"ssd_chunked_ref: T {T} is not a multiple of the "
                          f"chunk {chunk}")
     nc, L = T // chunk, chunk
-    xc = x.reshape(H, nc, L, P).to(F32)
-    dtc = dt.reshape(H, nc, L).to(F32)
-    Bc = B.reshape(H, nc, L, N).to(F32)
-    Cc = C.reshape(H, nc, L, N).to(F32)
-    l_cum = torch.cumsum(dtc * A.to(F32)[:, None, None], dim=-1)  # [H,nc,L]
+    cdt = torch.promote_types(x.dtype, F32)
+    op = (lambda t: t) if operand is None else operand
+    xc = x.reshape(H, nc, L, P).to(cdt)
+    dtc = dt.reshape(H, nc, L).to(cdt)
+    Bc = B.reshape(H, nc, L, N).to(cdt)
+    Cc = C.reshape(H, nc, L, N).to(cdt)
+    l_cum = torch.cumsum(dtc * A.to(cdt)[:, None, None], dim=-1)  # [H,nc,L]
     l_tot = l_cum[..., -1]                                        # [H, nc]
 
     # intra-chunk: M[t, s] = (C_t . B_s) exp(l_t - l_s) dt_s over s <= t
@@ -72,26 +80,26 @@ def ssd_chunked_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         ~causal, float("-inf"))
     cb = torch.einsum("hctn,hcsn->hcts", Cc, Bc)
     M = cb * torch.exp(diff) * dtc[..., None, :]
-    y = torch.einsum("hcts,hcsp->hctp", M, xc)
+    y = torch.einsum("hcts,hcsp->hctp", op(M), xc)
 
     # each chunk's own state contribution, then the carry across chunks:
     # S_in[c] is the state entering chunk c
     w = torch.exp(l_tot[..., None] - l_cum) * dtc                 # [H,nc,L]
-    S_chunk = torch.einsum("hcln,hclp->hcnp", Bc * w[..., None], xc)
-    S = torch.zeros((H, N, P), dtype=F32, device=x.device)
+    S_chunk = torch.einsum("hcln,hclp->hcnp", Bc, op(w[..., None] * xc))
+    S = torch.zeros((H, N, P), dtype=cdt, device=x.device)
     S_in = []
     for c in range(nc):
         S_in.append(S)
         S = torch.exp(l_tot[:, c])[:, None, None] * S + S_chunk[:, c]
     S_in = torch.stack(S_in, dim=1)                               # [H,nc,N,P]
     y = y + torch.exp(l_cum)[..., None] * torch.einsum(
-        "hcln,hcnp->hclp", Cc, S_in)
+        "hcln,hcnp->hclp", Cc, op(S_in))
     return y.reshape(H, T, P).to(x.dtype)
 
 
 def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
-                 B: torch.Tensor, C: torch.Tensor,
-                 chunk: int = 128) -> torch.Tensor:
+                 B: torch.Tensor, C: torch.Tensor, chunk: int = 128,
+                 operand: Optional[Callable] = None) -> torch.Tensor:
     """K8's function in the model's layout: x [Bt, T, H, P], dt [Bt, T, H],
     A [H], B / C [Bt, T, G, N] (H % G == 0) -> y [Bt, T, H, P] in x's
     dtype, through :func:`ssd_chunked_ref` at chunk ``min(chunk, T)`` with
@@ -113,5 +121,6 @@ def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     Bh = heads(B.repeat_interleave(rep, dim=2))
     Ch = heads(C.repeat_interleave(rep, dim=2))
     dth = heads(dt[..., None])[..., 0]
-    y = ssd_chunked_ref(xh, dth, A.repeat(Bt), Bh, Ch, chunk=L)[:, :T]
+    y = ssd_chunked_ref(xh, dth, A.repeat(Bt), Bh, Ch, chunk=L,
+                        operand=operand)[:, :T]
     return y.reshape(Bt, H, T, P).movedim(1, 2)

@@ -76,3 +76,16 @@ def test_chip_smoke_imports_no_jax_and_no_reference_package():
             names.append(node.module)
     assert "repro_torch.serve" in names and "torch" in names
     assert [n for n in names if _reference(n)] == []
+
+
+def test_decode_ab_imports_no_jax_and_no_reference_package():
+    """Every import statement of decode_ab.py, the decode-step A/B."""
+    tree = ast.parse((ROOT / "decode_ab.py").read_text())
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module)
+    assert "chip_smoke" in names and "repro_torch.serve" in names
+    assert [n for n in names if _reference(n)] == []

@@ -8,6 +8,7 @@ smoke shows up before a chip run.
 import pathlib
 import sys
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -89,11 +90,64 @@ def test_cold_copies_compute_the_same_call(name):
         assert copies[0]["cols"].shape == (P_, 3, R, K)
 
 
+def _split_call(name, rng):
+    """A bf16 prefill call at a small size: K7 causal over 96 keys at head
+    dim 112; K8 over T 100 at (P, N) (64, 64), one group."""
+    def bf16(*shape):
+        return torch.as_tensor(rng.standard_normal(shape),
+                               dtype=torch.float32).to(torch.bfloat16)
+
+    if name == "flash_attention_bh":
+        return dict(q=bf16(4, 96, 112), k=bf16(4, 96, 112),
+                    v=bf16(4, 96, 112), scale=112 ** -0.5, causal=True,
+                    window=0, kv_len=96, q_offset=0)
+    dt = torch.nn.functional.softplus(
+        torch.as_tensor(rng.standard_normal((1, 100, 4)) - 3.0,
+                        dtype=torch.float32))
+    A = -torch.as_tensor(np.exp(rng.uniform(0.0, np.log(16.0), 4)),
+                         dtype=torch.float32)
+    return dict(x=bf16(1, 100, 4, 64), dt=dt, A=A, B=bf16(1, 100, 1, 64),
+                C=bf16(1, 100, 1, 64))
+
+
+@pytest.mark.parametrize("name", ["flash_attention_bh", "ssd_scan_h"])
+def test_split_check_tells_the_split_from_one_rounding(name, monkeypatch):
+    """``split_check`` passes the plain version (the CPU's kernel) and the
+    plain version with its operands carried as bf16 hi + lo, as the
+    kernel carries them, and refuses one that rounds them once to bf16,
+    the control's own rounding."""
+    chip_smoke = _chip_smoke()
+    a = _split_call(name, np.random.default_rng(3))
+    got = chip_smoke.split_check(name, a, "test")
+    assert got["kernel"] == got["plain"] <= chip_smoke.SPLIT_SHARE
+    assert got["control"] > 10 * chip_smoke.SPLIT_SHARE
+
+    def rounded(operand_of):
+        def call(n, b):
+            return chip_smoke.serve_plain_call(n, b, operand=operand_of)
+        return call
+
+    def once(t):
+        return t.to(torch.bfloat16).to(t.dtype)
+
+    def hi_lo(t):
+        return once(t) + once(t - once(t))
+
+    monkeypatch.setattr(chip_smoke, "serve_kernel_call", rounded(hi_lo))
+    assert chip_smoke.split_check(name, a, "test")["kernel"] \
+        <= chip_smoke.SPLIT_SHARE
+    monkeypatch.setattr(chip_smoke, "serve_kernel_call", rounded(once))
+    with pytest.raises(SystemExit):
+        chip_smoke.split_check(name, a, "test")
+
+
 def test_chip_smoke_serve_phase_runs_on_cpu():
     """The serve phase at the reduced DeepSeek-V2-Lite config: every mode
     serves all requests, the plain-version replay of the oracle's modes and
-    the ample-capacity modes agree, the replay refuses both planted faults,
-    and every K5-K7 path call and edge case is checked."""
+    the ample-capacity modes agree, the replay refuses all three planted
+    faults (K6's last weight, K7's q_offset, K7's decode combine without
+    its last key split), and every K5-K7 path call and edge case is
+    checked."""
     chip_smoke = _chip_smoke()
     res = chip_smoke.serve_run("cpu", reduced_config=True)
     assert set(res["modes"]) == set(chip_smoke.SERVE_MODES)
@@ -108,7 +162,7 @@ def test_chip_smoke_serve_phase_runs_on_cpu():
     assert res["modes"]["auto"]["decode_mode"] in ("a2a", "hier",
                                                   "hier_dedup")
     planted = res["modes"][chip_smoke.ORACLE_MODES[0]]["planted"]
-    assert len(planted) == 2
+    assert len(planted) == 3
     for got in planted.values():
         assert got["rel_err"] > chip_smoke.LOGIT_TOL or got["differ"] > 0
     assert set(res["kernels"]) == set(chip_smoke.SERVE_SOURCES)
@@ -116,6 +170,7 @@ def test_chip_smoke_serve_phase_runs_on_cpu():
         assert rec["max_abs_err"] == 0.0 and rec["checked"] > 0
         assert rec["bound_ms"] > 0.0 and "decode" in rec
     assert all(n == 0 for n in res["launches"].values())   # no card
+    assert all(n == 0 for n in res["cuda_launches"].values())
 
 
 def test_chip_smoke_hybrid_phase_runs_on_cpu():
@@ -143,3 +198,16 @@ def test_chip_smoke_hybrid_phase_runs_on_cpu():
     assert res["kernels"]["ssd_scan_h"]["library_ms"] is None
     assert "decode" in res["kernels"]["flash_attention_bh"]
     assert all(n == 0 for n in res["launches"].values())   # no card
+
+
+@pytest.mark.skipif(torch.cuda.is_available(),
+                    reason="with a card the script runs the A/B itself")
+def test_decode_ab_refuses_to_run_without_a_card():
+    """``decode_ab.py`` needs a GPU: without one it exits non-zero and
+    prints no result."""
+    import subprocess
+
+    res = subprocess.run([sys.executable, str(ROOT / "decode_ab.py"), "src"],
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=120)
+    assert res.returncode != 0 and res.stdout == ""
