@@ -34,14 +34,16 @@ any phase fails:
    ``auto``, counting K5-K7 launches per prefill and decode step; replays
    every engine call of ``a2a`` and ``hier_dedup`` through the plain
    versions of K5-K7 with the same routing decisions (logits and greedy
-   tokens must agree) and through the kernels with a K6 fault and two K7
-   faults planted in the binding (``q_offset`` ignored; the decode
+   tokens must agree) and through the kernels with two K6 faults and two
+   K7 faults planted in the binding (K6's last weight dropped; every
+   lane's rows read from lane 0; ``q_offset`` ignored; the decode
    combine without its last key split; the oracle must refuse all
-   three); checks that the modes agree under ample capacity; holds every
+   four); checks that the modes agree under ample capacity; holds every
    K5-K7 call of one prefill and one decode step, and edge cases, against
-   the plain versions in bf16 and float32, times the largest calls (from
-   a cold L2), checks that K7 refuses a head dim it is not built for, and
-   profiles a short serve run;
+   the plain versions in bf16 and float32 (K6 also on a table whose next
+   row is NaN, which its sentinels must not read), times the largest
+   calls (from a cold L2), checks that K7 refuses a head dim it is not
+   built for, and profiles a short serve run;
 6. hybrid serve: draws zamba2-7b at full width and depth in bf16 on the
    card (seeded) and serves six requests through ``ServeEngine``, counting
    K7 / K8 calls and CUDA launches per prefill and decode step; holds
@@ -375,13 +377,13 @@ def cold_copies(name: str, a: dict, nbytes: int, l2: int) -> list:
     n = -(-COLD_L2_PASSES * l2 // nbytes)
     if nbytes >= l2 or n <= 1:
         return [a]
-    if name in ("gather_rows", "combine_rows"):
-        # a K5 / K6 copy holds only the rows its indices read, the indices
-        # remapped onto them: the same rows summed in the same order
-        key = "x" if name == "gather_rows" else "buf"
+    if name == "gather_rows":
+        # a K5 copy holds only the rows its indices read, the indices
+        # remapped onto them: the same rows in the same order
         rows, inv = torch.unique(a["idx"], return_inverse=True)
-        a = dict(a, **{key: a[key][rows.long()],
-                       "idx": inv.to(a["idx"].dtype)})
+        a = dict(a, x=a["x"][rows.long()], idx=inv.to(a["idx"].dtype))
+    if name == "combine_rows":
+        a = k6_compact(a)
     if name == "spmv_ell_blocked_partial":
         lo, hi = a["bucket_lo"], a["bucket_hi"]
         a = dict(a, cols=a["cols"][:, lo:hi], vals=a["vals"][:, lo:hi],
@@ -393,6 +395,42 @@ def cold_copies(name: str, a: dict, nbytes: int, l2: int) -> list:
     return [{k: v.clone(memory_format=torch.contiguous_format)
              if torch.is_tensor(v) else v for k, v in a.items()}
             for _ in range(n)]
+
+
+def k6_rows(a: dict):
+    """(flat row of each index of a lane-form K6 call, which are real) of
+    buf [G, R, D] seen as [G * R, D]; the sentinels' rows are 0."""
+    import torch
+
+    buf, idx = a["buf"], a["idx"]
+    G, R = buf.shape[:2]
+    real = idx.long() < R
+    lane = torch.arange(G, device=idx.device)[:, None, None] * R
+    return torch.where(real, idx.long(), 0) + lane, real
+
+
+def k6_compact(a: dict) -> dict:
+    """A lane-form K6 call on one lane holding only the real rows its
+    indices read, plus one zero row no index reads (the library call's
+    ``padding_idx``); the real indices remapped onto them, in order, the
+    sentinels moved to the new R: the same rows summed in the same order.
+    The indices as the kernel takes them, int32 (the layer passes its
+    int64 slots, which the wrapper casts: an op of the layer's, not of
+    the kernel's, left out of the kernel's device time as before the lane
+    form, when the layer cast them itself)."""
+    import torch
+
+    buf = a["buf"]
+    flat, real = k6_rows(a)
+    rows, inv = torch.unique(flat[real], return_inverse=True)
+    U = rows.numel()
+    idx = torch.full_like(a["idx"], U + 1, dtype=torch.int32)
+    idx[real] = inv.to(torch.int32)
+    table = buf.reshape(-1, buf.shape[2])[rows]
+    table = torch.cat([table, table.new_zeros((1, table.shape[1]))])
+    K = idx.shape[2]
+    return dict(a, buf=table[None], idx=idx.reshape(1, -1, K),
+                w=a["w"].reshape(1, -1, K))
 
 
 def time_call(name: str, a: dict, on_card: bool,
@@ -892,12 +930,11 @@ def card_sync(on_card: bool) -> None:
 
 
 # the served models' kernel call sites: binding name -> (module of
-# repro_torch.models, attribute)
+# repro_torch.models, attribute).  K6's takes the lane form, buf [G, R, D]
+# and idx / w [G, N, K] (``combine_lanes``).
 CALL_SITES = {"gather": ("moe", "pack_gather"),
-              "combine": ("moe", "pack_combine"),
+              "combine": ("moe", "pack_combine_lanes"),
               "flash": ("attention", "flash"), "ssd": ("ssm", "ssd")}
-
-
 @contextlib.contextmanager
 def bound_kernels(**fns):
     """Bind the served models' kernel call sites named in ``fns`` (K5
@@ -920,10 +957,10 @@ def bound_kernels(**fns):
 def plain_kernels():
     """The models bound to the plain versions of K5-K8: their oracle."""
     from repro_torch.kernels.flash_attention import attention_ref
-    from repro_torch.kernels.moe_pack import combine_rows_ref, gather_rows_ref
+    from repro_torch.kernels.moe_pack import combine_lanes_ref, gather_rows_ref
     from repro_torch.kernels.ssd_scan import ssd_scan_ref
 
-    return bound_kernels(gather=gather_rows_ref, combine=combine_rows_ref,
+    return bound_kernels(gather=gather_rows_ref, combine=combine_lanes_ref,
                          flash=attention_ref, ssd=ssd_scan_ref)
 
 
@@ -937,11 +974,18 @@ def planted_faults() -> dict:
         DECODE_SPLIT,
         decode_splits,
     )
-    from repro_torch.kernels.moe_pack import combine
+    from repro_torch.kernels.moe_pack import combine_lanes as combine
 
     def k6_drops_last_weight(buf, idx, w):
         return combine(buf, idx, torch.cat(
-            [w[:, :-1], torch.zeros_like(w[:, -1:])], dim=1))
+            [w[..., :-1], torch.zeros_like(w[..., -1:])], dim=-1))
+
+    def k6_reads_lane_0(buf, idx, w):
+        """Every lane's indices read lane 0's rows: the lane offset
+        dropped."""
+        G, N, K = idx.shape
+        return combine(buf[:1], idx.reshape(1, G * N, K),
+                       w.reshape(1, G * N, K)).reshape(G, N, -1)
 
     def k7_ignores_q_offset(q, k, v, **kw):
         return attention(q, k, v, **dict(kw, q_offset=0))
@@ -959,13 +1003,16 @@ def planted_faults() -> dict:
         return attention(q, k, v, **dict(
             kw, kv_len=begin + (n - 1) * DECODE_SPLIT))
 
-    return {
+    faults = {
         "K6 drops the last of its K weights": bound_kernels(
             combine=k6_drops_last_weight),
+        "K6 reads every lane's rows from lane 0": bound_kernels(
+            combine=k6_reads_lane_0),
         "K7 ignores q_offset": bound_kernels(flash=k7_ignores_q_offset),
         "K7's decode combine drops its last key split": bound_kernels(
             flash=k7_drops_last_split),
     }
+    return faults
 
 
 @contextlib.contextmanager
@@ -993,7 +1040,7 @@ def recording_serve_kernel_calls(calls: dict, phase: str):
 
     def combine(buf, idx, w):
         record("combine_rows", dict(buf=buf, idx=idx, w=w))
-        return saved["pack_combine"](buf, idx, w)
+        return saved["pack_combine_lanes"](buf, idx, w)
 
     def flash(q, k, v, **kw):
         B, H, Tq, d = q.shape
@@ -1013,7 +1060,8 @@ def recording_serve_kernel_calls(calls: dict, phase: str):
         record("ssd_scan_h", dict(x=x, dt=dt, A=A, B=B, C=C))
         return saved["ssd"](x, dt, A, B, C, **kw)
 
-    saved = dict(pack_gather=moe.pack_gather, pack_combine=moe.pack_combine,
+    saved = dict(pack_gather=moe.pack_gather,
+                 pack_combine_lanes=moe.pack_combine_lanes,
                  flash=attention.flash, ssd=ssm.ssd)
     with bound_kernels(gather=pack, combine=combine, flash=flash, ssd=ssd):
         yield calls
@@ -1204,7 +1252,8 @@ def replay_plain(model, params, engine, calls: list, decisions: list,
 def serve_work(name: str, a: dict):
     """(bytes, flops) a K5-K8 call must move and do: each input read once,
     the output written once, counting only what this call's data needs
-    (K6 the distinct rows its indices read, K7 the keys below kv_len and
+    (K6 the distinct real rows its indices read, none for a sentinel, and
+    a product for each real index, K7 the keys below kv_len and
     the visible (query, key) pairs, K8 its true T in chunks of the
     reference's 128, the last one ragged)."""
     import torch
@@ -1227,12 +1276,14 @@ def serve_work(name: str, a: dict):
         rows = int(torch.unique(idx).numel())
         return rows * row + idx.numel() * (4 + row), 0
     if name == "combine_rows":
-        buf, idx, w = a["buf"], a["idx"], a["w"]
-        row = buf.shape[1] * buf.element_size()
-        rows = int(torch.unique(idx).numel())
-        T, K = idx.shape
-        return (rows * row + idx.numel() * 8 + T * row,
-                2 * T * K * buf.shape[1])
+        buf, idx = a["buf"], a["idx"]
+        D = buf.shape[2]
+        row = D * buf.element_size()
+        flat, real = k6_rows(a)
+        rows = int(torch.unique(flat[real]).numel())
+        tokens = idx.shape[0] * idx.shape[1]
+        return (rows * row + idx.numel() * 8 + tokens * row,
+                2 * int(real.sum()) * D)
     from repro_torch.kernels.flash_attention.ref import attention_mask
 
     q, k = a["q"], a["k"]
@@ -1255,7 +1306,7 @@ def serve_kernel_call(name: str, a: dict):
     if name == "gather_rows":
         return mp_ops.pack(a["x"], a["idx"])
     if name == "combine_rows":
-        return mp_ops.combine(a["buf"], a["idx"], a["w"])
+        return mp_ops.combine_lanes(a["buf"], a["idx"], a["w"])
     return fa_ops.flash_attention_bh(
         a["q"], a["k"], a["v"], scale=a["scale"], causal=a["causal"],
         window=a["window"], kv_len=a["kv_len"], q_offset=a["q_offset"])
@@ -1266,7 +1317,7 @@ def serve_plain_call(name: str, a: dict, operand=None):
     versions take it (applied to their fp32 product operands)."""
     from repro_torch.kernels.flash_attention.ref import flash_attention_bh_ref
     from repro_torch.kernels.moe_pack.ref import (
-        combine_rows_ref,
+        combine_lanes_ref,
         gather_rows_ref,
     )
     from repro_torch.kernels.ssd_scan import ssd_scan_ref
@@ -1277,7 +1328,7 @@ def serve_plain_call(name: str, a: dict, operand=None):
     if name == "gather_rows":
         return gather_rows_ref(a["x"], a["idx"])
     if name == "combine_rows":
-        return combine_rows_ref(a["buf"], a["idx"], a["w"])
+        return combine_lanes_ref(a["buf"], a["idx"], a["w"])
     return flash_attention_bh_ref(
         a["q"], a["k"], a["v"], scale=a["scale"], causal=a["causal"],
         window=a["window"], kv_len=a["kv_len"], q_offset=a["q_offset"],
@@ -1287,9 +1338,16 @@ def serve_plain_call(name: str, a: dict, operand=None):
 def serve_library_call(name: str, a: dict):
     """One PyTorch call computing the same function, as a yardstick only:
     ``index_select`` for K5, ``embedding_bag(mode="sum",
-    per_sample_weights=...)`` for K6 (its weights rounded to buf's dtype),
-    ``scaled_dot_product_attention`` with the explicit mask for K7; None
-    for K8, since no single PyTorch call computes an SSD scan."""
+    per_sample_weights=...)`` for K6, ``scaled_dot_product_attention``
+    with the explicit mask for K7; None for K8, since no single PyTorch
+    call computes an SSD scan.
+
+    K6's is built before the call: the bags are the lane-offset indices
+    into buf seen as one [G * R, D] table, each sentinel mapped to the
+    first row no real index reads, which is passed as ``padding_idx`` (so
+    it adds nothing, as the sentinel adds nothing), and the weights are
+    rounded to buf's dtype; None if every row is read (the timed calls'
+    cold copies keep one such row: :func:`k6_compact`)."""
     import torch
     import torch.nn.functional as tf
 
@@ -1300,9 +1358,21 @@ def serve_library_call(name: str, a: dict):
     if name == "gather_rows":
         return lambda: torch.index_select(a["x"], 0, a["idx"])
     if name == "combine_rows":
-        w = a["w"].to(a["buf"].dtype)
-        return lambda: tf.embedding_bag(a["idx"], a["buf"], mode="sum",
-                                        per_sample_weights=w)
+        buf, K = a["buf"], a["idx"].shape[2]
+        table = buf.reshape(-1, buf.shape[2])
+        flat, real = k6_rows(a)
+        read = torch.zeros(table.shape[0], dtype=torch.bool,
+                           device=table.device)
+        read[flat[real]] = True
+        free = torch.nonzero(~read)
+        if not free.numel():
+            return None
+        pad = int(free[0, 0])
+        bags = torch.where(real, flat, pad).reshape(-1, K)
+        w = a["w"].to(buf.dtype).reshape(-1, K)
+        return lambda: tf.embedding_bag(bags, table, mode="sum",
+                                        per_sample_weights=w,
+                                        padding_idx=pad)
     q, k, v = a["q"], a["k"], a["v"]
     mask = attention_mask(q.shape[1], k.shape[1], a["causal"], a["window"],
                           a["kv_len"], a["q_offset"], q.device)
@@ -1477,11 +1547,13 @@ def serve_kernel_phase(recorded: dict, on_card: bool) -> dict:
 
 
 def serve_edge_calls(device, gen) -> list:
-    """K5-K7 calls the served path does not make: a ragged row count, a row
-    width that takes the 2-byte copy unit, all-pad indices, K = 1, GQA
-    head dims 64 / 128 / 256 and 112 in prefill with Tq not a multiple of
-    the kernel's 64 rows, fully masked attention rows, and q_offset > 0
-    with kv_len < Tk."""
+    """K5-K7 calls the served path does not make: for K5 a ragged row
+    count, a row width that takes the 2-byte copy unit and all-pad
+    indices; for K6 on three lanes K = 1, 6 and 9 (``KMAX`` 8 and the
+    grouping past it) with sentinels, an all-sentinel call and an odd row
+    width (the scalar path); GQA head dims 64 / 128 / 256 and 112 in
+    prefill with Tq not a multiple of the kernel's 64 rows, fully masked
+    attention rows, and q_offset > 0 with kv_len < Tk."""
     import torch
 
     def rnd(*shape):
@@ -1502,13 +1574,14 @@ def serve_edge_calls(device, gen) -> list:
         ("gather_rows", dict(x=t, idx=idx(778, 1001))),
         ("gather_rows", dict(x=table(50, 37), idx=idx(51, 333))),
         ("gather_rows", dict(x=t, idx=pad)),
-        ("combine_rows", dict(buf=t, idx=idx(778, 999, 6),
-                              w=torch.rand(999, 6, generator=gen).to(device))),
-        ("combine_rows", dict(buf=t, idx=idx(778, 64, 1),
-                              w=torch.rand(64, 1, generator=gen).to(device))),
-        ("combine_rows", dict(buf=t, idx=pad.reshape(32, 2),
-                              w=torch.ones(32, 2, device=device))),
     ]
+    calls += [("combine_rows", k6_edge_call(rnd(3, 259, D), N, K, gen))
+              for D, N, K in ((2048, 333, 1), (2048, 333, 6),
+                              (2048, 333, 9), (37, 50, 6))]
+    calls.append(("combine_rows", dict(
+        buf=rnd(3, 259, 2048), idx=torch.full(
+            (3, 64, 6), 259, dtype=torch.int32, device=device),
+        w=torch.rand(3, 64, 6, generator=gen).to(device))))
     for d, Tq, Tk, causal, window, kv_len, q_offset in (
             (64, 40, 40, True, 0, 40, 0), (128, 17, 300, True, 0, 201, 184),
             (256, 33, 64, False, 0, 50, 0), (112, 100, 150, True, 0, 150, 0),
@@ -1518,6 +1591,55 @@ def serve_edge_calls(device, gen) -> list:
             scale=d ** -0.5, causal=causal, window=window, kv_len=kv_len,
             q_offset=q_offset)))
     return calls
+
+
+def k6_edge_call(buf, N: int, K: int, gen, sentinel_lane=None) -> dict:
+    """A lane-form K6 call on ``buf`` [G, R, D]: random indices, a quarter
+    of them (and all K of ``sentinel_lane``'s last token) at the sentinel
+    R, whose weights stay random."""
+    import torch
+
+    G, R = buf.shape[:2]
+    idx = torch.randint(0, R, (G, N, K), generator=gen, dtype=torch.int32)
+    idx[torch.rand(G, N, K, generator=gen) < 0.25] = R
+    if sentinel_lane is not None:
+        idx[sentinel_lane, -1] = R
+    return dict(buf=buf, idx=idx.to(buf.device),
+                w=torch.rand(G, N, K, generator=gen).to(buf.device))
+
+
+def k6_guard_check(device, gen) -> float:
+    """K6 on a table whose next row is NaN: buf [8, 512, 2048] is a view of
+    the first 8 * 512 rows of a tensor whose last row is NaN, the
+    sentinels in every lane and in full in the last lane's last token.
+    The output must be finite and within tolerance of the plain version,
+    in bf16 and float32: no sentinel is read.  Returns the bf16 max
+    |difference|."""
+    import torch
+
+    G, R, D = 8, 512, 2048
+    abs_err = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[1]
+        base = torch.randn(G * R + 1, D, generator=gen).to(device, dtype)
+        base[-1] = float("nan")
+        a = k6_edge_call(base[:G * R].view(G, R, D), 8, 6, gen,
+                         sentinel_lane=G - 1)
+        got, want = serve_kernel_call("combine_rows", a), serve_plain_call(
+            "combine_rows", a)
+        if not bool(torch.isfinite(got).all()):
+            fail(f"combine_rows guard call {dname}: non-finite output, a "
+                 "sentinel read the NaN row")
+        err = rel_err(got.float(), want.float())
+        if not err <= SERVE_TOL[dname]:
+            fail(f"combine_rows guard call {dname}: max rel error {err} > "
+                 f"{SERVE_TOL[dname]}")
+        if dtype == torch.bfloat16:
+            abs_err = float(torch.max(torch.abs(got.float() - want.float())))
+    log(f"kernel combine_rows       guard   (buf [{G}, {R}, {D}] before a "
+        "NaN row, sentinels in every lane): finite, within tolerance in "
+        "bf16 and float32")
+    return abs_err
 
 
 def unbuilt_head_dim_raises(device) -> None:
@@ -1958,6 +2080,9 @@ def serve_run(device: str = "cuda", reduced_config: bool = False) -> dict:
         kernels[name]["max_abs_err"] = max(kernels[name]["max_abs_err"], err)
         log(f"kernel {name:18s} edge    ({serve_call_shape(name, a)}): "
             "within tolerance in bf16 and float32")
+    err = k6_guard_check(device, gen)
+    kernels["combine_rows"]["max_abs_err"] = max(
+        kernels["combine_rows"]["max_abs_err"], err)
     prof = None
     if on_card:
         unbuilt_head_dim_raises(device)

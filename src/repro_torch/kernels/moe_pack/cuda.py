@@ -17,11 +17,11 @@ from ..build import CudaLibrary, I, P, check_cuda
 
 LIBRARY = CudaLibrary("moe_pack.cu", {
     "repro_gather_rows": [P, P, P, I, I, I],
-    "repro_combine_rows_bf16": [P, P, P, P, I, I, I, I],
-    "repro_combine_rows_f32": [P, P, P, P, I, I, I, I],
+    "repro_combine_lanes_bf16": [P, P, P, P, I, I, I, I, I, I],
+    "repro_combine_lanes_f32": [P, P, P, P, I, I, I, I, I, I],
 })
-_COMBINE = {torch.bfloat16: "repro_combine_rows_bf16",
-            torch.float32: "repro_combine_rows_f32"}
+_COMBINE = {torch.bfloat16: "repro_combine_lanes_bf16",
+            torch.float32: "repro_combine_lanes_f32"}
 
 
 def _unit(nbytes: int, *tensors: torch.Tensor) -> int:
@@ -49,22 +49,30 @@ def gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def combine_rows(buf: torch.Tensor, idx: torch.Tensor,
-                 w: torch.Tensor) -> torch.Tensor:
-    """K6 on the card: buf [N, D] bf16/f32, idx [T, K] int32, w [T, K] f32
-    -> [T, D] in buf's dtype."""
-    device = check_cuda("combine_rows", buf=buf, idx=idx, w=w)
+def combine_lanes(buf: torch.Tensor, idx: torch.Tensor,
+                  w: torch.Tensor) -> torch.Tensor:
+    """K6 on the card: buf [G, R, D] bf16/f32, idx [G, N, K] int32, w
+    [G, N, K] f32 -> [G, N, D] in buf's dtype; an index outside [0, R)
+    adds zero and reads no row."""
+    device = check_cuda("combine_lanes", buf=buf, idx=idx, w=w)
     if buf.dtype not in _COMBINE:
-        raise TypeError(f"combine_rows: buf is {buf.dtype}, expected "
+        raise TypeError(f"combine_lanes: buf is {buf.dtype}, expected "
                         "bfloat16 or float32")
     if idx.dtype != torch.int32 or w.dtype != torch.float32:
-        raise TypeError(f"combine_rows: idx {idx.dtype} / w {w.dtype}, "
+        raise TypeError(f"combine_lanes: idx {idx.dtype} / w {w.dtype}, "
                         "expected int32 / float32")
-    (T, K), D = idx.shape, buf.shape[1]
-    out = torch.empty((T, D), dtype=buf.dtype, device=device)
+    (G, R, D), (N, K) = buf.shape, idx.shape[1:]
+    out = torch.empty((G, N, D), dtype=buf.dtype, device=device)
     if out.numel():
         vector = int(_unit(D * buf.element_size(), buf, out) == 16)
         LIBRARY.launch("combine_rows", _COMBINE[buf.dtype], device,
                        buf.data_ptr(), idx.data_ptr(), w.data_ptr(),
-                       out.data_ptr(), T, K, D, vector)
+                       out.data_ptr(), G, N, K, R, D, vector)
     return out
+
+
+def combine_rows(buf: torch.Tensor, idx: torch.Tensor,
+                 w: torch.Tensor) -> torch.Tensor:
+    """K6 on one table: buf [N, D], idx [T, K] int32, w [T, K] f32 -> [T, D]
+    (:func:`combine_lanes` on one lane)."""
+    return combine_lanes(buf[None], idx[None], w[None])[0]

@@ -12,7 +12,7 @@ import torch
 
 from .. import use_kernel
 from . import cuda
-from .ref import combine_rows_ref, gather_rows_ref
+from .ref import combine_lanes_ref, combine_rows_ref, gather_rows_ref
 
 _INDEX = (torch.int32, torch.int64)
 
@@ -31,8 +31,11 @@ def pack(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 def combine(buf: torch.Tensor, idx: torch.Tensor,
             w: torch.Tensor) -> torch.Tensor:
-    """K6: ``out[t] = sum_k w[t, k] * buf[idx[t, k]]`` in float32, cast to
-    ``buf``'s dtype; a gather, never a scatter-add."""
+    """K6 as ``repro``'s ``combine_rows``: ``out[t] = sum_k w[t, k] *
+    buf[idx[t, k]]`` in float32, cast to ``buf``'s dtype; a gather, never a
+    scatter-add.  Every index names a row of ``buf`` (pads a zero row the
+    caller appended); on the card, :func:`combine_lanes`'s kernel on one
+    lane."""
     if (buf.dim() != 2 or idx.dim() != 2 or w.shape != idx.shape
             or idx.dtype not in _INDEX or not w.is_floating_point()):
         raise ValueError(
@@ -45,3 +48,24 @@ def combine(buf: torch.Tensor, idx: torch.Tensor,
                                  idx.to(torch.int32).contiguous(),
                                  w.to(torch.float32).contiguous())
     return combine_rows_ref(buf, idx, w)
+
+
+def combine_lanes(buf: torch.Tensor, idx: torch.Tensor,
+                  w: torch.Tensor) -> torch.Tensor:
+    """K6 over G stacked lanes: ``out[g, n] = sum_k w[g, n, k] *
+    buf[g, idx[g, n, k]]`` (buf [G, R, D], idx / w [G, N, K]) in float32,
+    cast to ``buf``'s dtype.  An index ``>= R`` (the MoE layer's sentinel
+    for a dropped pair) adds exactly zero: no pad row is needed."""
+    if (buf.dim() != 3 or idx.dim() != 3 or w.shape != idx.shape
+            or idx.shape[0] != buf.shape[0] or idx.dtype not in _INDEX
+            or not w.is_floating_point()):
+        raise ValueError(
+            f"combine_lanes: buf {tuple(buf.shape)} / idx {tuple(idx.shape)} "
+            f"{idx.dtype} / w {tuple(w.shape)} {w.dtype}: expected [G, R, D], "
+            "an int [G, N, K] and a float [G, N, K]"
+        )
+    if use_kernel(buf, idx, w):
+        return cuda.combine_lanes(buf.contiguous(),
+                                  idx.to(torch.int32).contiguous(),
+                                  w.to(torch.float32).contiguous())
+    return combine_lanes_ref(buf, idx, w)

@@ -22,8 +22,10 @@ Lanes on one card.  ``repro`` runs the dispatch as an SPMD program under
 ``shard_map`` over a device mesh.  The port runs every device of the mesh as
 a lane stacked on a leading dim of one tensor, ``[G, N, D]`` with G the mesh
 size in mesh order: routing, capacity packing and the combine are batched
-over lanes; K5 packs and K6 combines every lane in one launch each (the
-lanes' row tables concatenated, each lane's indices offset into its own);
+over lanes; K5 packs every lane in one launch (the lanes' row tables
+concatenated, each lane's indices offset into its own) and K6 combines
+every lane in one launch on the lane-stacked ``[G, R, D]`` table, reading
+each lane's rows and its dropped-pair sentinel itself;
 a tiled ``all_to_all`` over a set of mesh axes is a permutation that swaps
 those axes of the lane dim with the matching chunks of the data dim; the
 ``psum``/``pmean`` of ``dropped``, ``aux`` and ``expert_counts`` are sums
@@ -45,7 +47,7 @@ from ..core.costmodel import MachineParams
 from ..core.dynexchange import DiscoveryStats, SparseDynamicExchange
 from ..core.plan import CommPattern, Topology
 from ..core.selection import SelectionReport, select_plan
-from ..kernels.moe_pack import combine as pack_combine
+from ..kernels.moe_pack import combine_lanes as pack_combine_lanes
 from ..kernels.moe_pack import pack as pack_gather
 from .common import ArchConfig, Initializer, Mesh, activation, compute_dtype
 
@@ -449,18 +451,6 @@ def _gather_lanes(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return pack_gather(table.reshape(G * R, D), flat).reshape(G, -1, D)
 
 
-def _combine_lanes(buf: torch.Tensor, idx: torch.Tensor,
-                   w: torch.Tensor) -> torch.Tensor:
-    """K6 over every lane in one launch: ``out[g, t] = sum_k w[g, t, k] *
-    buf[g, idx[g, t, k]]`` (buf [G, R, D], idx / w [G, N, k])."""
-    G, R, D = buf.shape
-    N, k = idx.shape[1:]
-    off = torch.arange(G, device=idx.device, dtype=idx.dtype)[:, None, None]
-    flat = (idx + off * R).reshape(G * N, k).to(torch.int32)
-    return pack_combine(buf.reshape(G * R, D), flat,
-                        w.reshape(G * N, k)).reshape(G, N, D)
-
-
 def _pad_row(t: torch.Tensor) -> torch.Tensor:
     """[G, R, D] -> [G, R + 1, D] with a zero row appended to each lane."""
     out = t.new_zeros((t.shape[0], t.shape[1] + 1, t.shape[2]))
@@ -517,7 +507,7 @@ def moe_dispatch_lane(
     measured routing histogram: valid pairs per logical expert,
     pre-capacity."""
     G, N, D = x_lane.shape
-    k, EC = plan.top_k, plan.e_phys * plan.capacity
+    k = plan.top_k
     act_fn = activation(cfg.act)
     if valid is None:
         valid = torch.ones((G, N), dtype=torch.bool, device=x_lane.device)
@@ -553,7 +543,9 @@ def moe_dispatch_lane(
     n_real = torch.sum(valid.float(), dim=1) * k
     dropped = 1.0 - kept_real / torch.clamp(n_real, min=1.0)
 
-    y = _combine_lanes(_pad_row(y_recv), torch.clamp(slot, max=EC), w)
+    # y_recv holds a lane's EC = e_phys * capacity slots, and a dropped
+    # pair's slot is the sentinel EC, which K6 reads as zero: no pad row
+    y = pack_combine_lanes(y_recv, slot, w)
     return y.to(x_lane.dtype), aux, dropped, counts
 
 

@@ -13,6 +13,9 @@
   the CPU, reproduces each output within 1e-5 (float32; the expert
   products sum in another order) and ``dropped`` / ``expert_counts``
   exactly.
+* The layer's K6 call takes the lanes' received rows as they are, with no
+  zero row appended, dropped pairs at the sentinel, and gives bit for bit
+  what the padded flat call form gives.
 """
 import dataclasses
 import os
@@ -36,6 +39,7 @@ from repro.models import moe as ref_moe
 from repro_torch.configs import get, reduced
 from repro_torch.core import PlanCache
 from repro_torch.core.costmodel import LASSEN
+from repro_torch.kernels.moe_pack import combine, combine_lanes
 from repro_torch.models import moe
 from repro_torch.models.common import Mesh
 
@@ -261,6 +265,52 @@ def test_moe_layer_matches_reference_in_every_mode(reference_runs):
     base = ys["a2a|0|8.0|None"]
     for tag, y in ys.items():
         np.testing.assert_allclose(y.numpy(), base.numpy(), **TOL)
+
+
+@pytest.mark.parametrize("tag", ["a2a|1|0.5|None", "hier_dedup|1|1.0|0.25",
+                                 "hier|0|8.0|None"])
+def test_combine_takes_the_received_rows_without_a_pad_row(
+        reference_runs, monkeypatch, tag):
+    """Every K6 call of the layer: buf is the lanes' [G, e_phys * capacity,
+    D] received rows, its indices in [0, e_phys * capacity] with the
+    capacity-starved runs' dropped pairs at the sentinel; the output equals
+    the earlier call form's (a zero row appended to each lane, indices
+    offset into the flat table) bit for bit."""
+    _ref_cfg, cfg = cfgs()
+    mesh = Mesh(("pod", "data", "model"), (2, 2, 2))
+    x = torch.as_tensor(reference_runs["x"])
+    B, S = x.shape[:2]
+    mode, pods, cap, dedup = tag.split("|")
+    plan = moe.make_moe_plan(
+        cfg, mesh, B * S // 4, mode=mode, ep_over_pods=bool(int(pods)),
+        cap_factor=float(cap),
+        dedup_factor=None if dedup == "None" else float(dedup))
+    params = {k.rsplit("|", 1)[1]: torch.as_tensor(v)
+              for k, v in reference_runs.items() if k.startswith(f"{tag}|p|")}
+    calls = []
+
+    def record(buf, idx, w):
+        calls.append((buf, idx, w))
+        return combine_lanes(buf, idx, w)
+
+    monkeypatch.setattr(moe, "pack_combine_lanes", record)
+    y = moe.moe_layer(x, params, plan, cfg, mesh, ("pod", "data"))[0]
+    np.testing.assert_allclose(y.numpy(), reference_runs[f"{tag}|y"], **TOL)
+    EC = plan.e_phys * plan.capacity
+    assert len(calls) == 1
+    buf, idx, w = calls[0]
+    G, N, K = idx.shape
+    assert buf.shape == (mesh.size, EC, cfg.d_model)
+    assert int(idx.min()) >= 0 and int(idx.max()) <= EC
+    # expert-capacity drops only at cap_factor 0.5 (hier_dedup's at 1.0
+    # are unique-slot drops: their pairs keep an expert slot, which
+    # receives a zero row)
+    assert bool((idx == EC).any()) == (float(cap) < 1.0)
+    padded = torch.cat([buf, buf.new_zeros((G, 1, buf.shape[2]))], 1)
+    flat = idx + (EC + 1) * torch.arange(G)[:, None, None]
+    want = combine(padded.reshape(G * (EC + 1), -1), flat.reshape(-1, K),
+                   w.reshape(-1, K))
+    assert torch.equal(combine_lanes(buf, idx, w), want.reshape(G, N, -1))
 
 
 def test_a2a_permutes_lanes_like_all_to_all():

@@ -4,7 +4,11 @@ ops' input validation and device dispatch.
 
 Inputs are seeded numpy arrays in float32.  K5 is a copy, so it must agree
 exactly.  K6 sums K weighted rows in float32 on both sides; only the order
-of the adds may differ, hence 1e-6.
+of the adds may differ, hence 1e-6.  K6's lane form (``combine_lanes``:
+buf [G, R, D], an index >= R adds zero) is held against ``repro``'s kernel
+on the table ``repro``'s MoE layer feeds it: each lane's rows with a zero
+row appended, the lanes concatenated, each lane's indices offset into its
+own and its sentinels pointed at its zero row.
 """
 import numpy as np
 import pytest
@@ -17,6 +21,8 @@ from repro.kernels.moe_pack.moe_pack import combine_rows, gather_rows
 from repro_torch.kernels import LAUNCHES, use_kernel
 from repro_torch.kernels.moe_pack import (
     combine,
+    combine_lanes,
+    combine_lanes_ref,
     combine_rows_ref,
     gather_rows_ref,
     pack,
@@ -113,6 +119,12 @@ W = torch.ones(6, 2)
     lambda: combine(X, IDX, W),                       # idx not [T, K]
     lambda: combine(X, IDX.reshape(6, 2), W.reshape(-1)),   # w vs idx
     lambda: combine(X, IDX.reshape(6, 2), W.long()),  # w not float
+    lambda: combine_lanes(X, IDX.reshape(1, 6, 2), W[None]),   # buf 2-d
+    lambda: combine_lanes(X[None], IDX.reshape(6, 2), W),      # idx 2-d
+    lambda: combine_lanes(X[None], IDX.reshape(2, 3, 2),       # lanes differ
+                          W.reshape(2, 3, 2)),
+    lambda: combine_lanes(X[None], IDX.reshape(1, 6, 2), W[None, :3]),
+    lambda: combine_lanes(X[None], IDX.reshape(1, 6, 2).float(), W[None]),
 ])
 def test_ops_reject_malformed_input(call):
     with pytest.raises(ValueError, match="pack|combine"):
@@ -135,4 +147,113 @@ def test_dispatch_is_by_device():
         cuda.combine_rows(x, idx.reshape(3, 1), torch.ones(3, 1))
     pack(x, idx)
     combine(x, idx.reshape(3, 1), torch.ones(3, 1))
+    assert LAUNCHES == before
+
+
+def lanes_case(G, N, K, R, D, sentinels, seed):
+    """Seeded lane-form inputs: buf [G, R, D], idx [G, N, K] in [0, R] (R
+    the sentinel, with its weight zeroed as the MoE layer zeroes a
+    dropped pair's), w [G, N, K]."""
+    rng = np.random.default_rng(seed)
+    buf = rng.normal(size=(G, R, D)).astype(np.float32)
+    idx = rng.integers(0, R, size=(G, N, K)).astype(np.int32)
+    w = rng.random(size=(G, N, K)).astype(np.float32)
+    if sentinels:
+        drop = rng.random(size=(G, N, K)) < 0.3
+        idx[drop], w[drop] = R, 0.0
+        idx[-1, ::2] = R                   # whole tokens dropped, any weight
+    return buf, idx, w
+
+
+def padded_flat(buf, idx):
+    """``repro``'s call form: each lane's rows + a zero row, concatenated,
+    indices offset into their lane and sentinels at its zero row."""
+    G, R, D = buf.shape
+    table = np.concatenate([buf, np.zeros((G, 1, D), buf.dtype)], axis=1)
+    flat = np.minimum(idx, R) + (R + 1) * np.arange(G)[:, None, None]
+    return table.reshape(G * (R + 1), D), flat.reshape(-1, idx.shape[2])
+
+
+@pytest.mark.parametrize("sentinels", [False, True])
+@pytest.mark.parametrize("K", [1, 6, 9])
+@pytest.mark.parametrize("G", [1, 3])
+def test_combine_lanes_matches_pallas(G, K, sentinels):
+    N, R, D = 16, 24, 128
+    buf, idx, w = lanes_case(G, N, K, R, D, sentinels, seed=10 * G + K)
+    table, flat = padded_flat(buf, idx)
+    want = np.asarray(combine_rows(
+        jnp.asarray(table), jnp.asarray(flat), jnp.asarray(w.reshape(-1, K)),
+        block_m=16, block_d=128, interpret=True)).reshape(G, N, D)
+    got = combine_lanes(torch.as_tensor(buf), torch.as_tensor(idx),
+                        torch.as_tensor(w))
+    assert got.dtype == torch.float32 and got.shape == (G, N, D)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_combine_lanes_ref_equals_the_padded_flat_combine(dtype):
+    """Bit for bit the earlier call form of the MoE layer: a zero row
+    appended to every lane, indices offset into the flat table, the flat
+    plain K6."""
+    buf, idx, w = lanes_case(4, 10, 6, 33, 64, True, seed=7)
+    table, flat = padded_flat(buf, idx)
+    tb = torch.as_tensor(buf).to(dtype)
+    want = combine_rows_ref(torch.as_tensor(table).to(dtype),
+                            torch.as_tensor(flat),
+                            torch.as_tensor(w.reshape(-1, 6)))
+    got = combine_lanes_ref(tb, torch.as_tensor(idx), torch.as_tensor(w))
+    assert torch.equal(got, want.reshape(got.shape))
+    assert torch.equal(combine_lanes(tb, torch.as_tensor(idx),
+                                     torch.as_tensor(w)), got)
+
+
+def test_combine_lanes_all_sentinel_lane_is_exact_zero():
+    """A lane whose every index is the sentinel gives exact zeros in buf's
+    dtype, whatever the weights (inf and NaN included); the other lanes
+    are untouched."""
+    buf = torch.ones(2, 5, 16, dtype=torch.bfloat16)
+    idx = torch.zeros(2, 3, 2, dtype=torch.int32)
+    idx[1] = 5
+    w = torch.ones(2, 3, 2)
+    w[1, 0], w[1, 1] = float("inf"), float("nan")
+    out = combine_lanes(buf, idx, w)
+    assert out.dtype == torch.bfloat16
+    assert not out[1].any() and not out[1].signbit().any()
+    assert torch.equal(out[0], torch.full((3, 16), 2.0, dtype=torch.bfloat16))
+
+
+def test_combine_lanes_reads_no_sentinel_row():
+    """buf is a view of a table whose next row is NaN, with the sentinel
+    in the last lane: nothing past each lane's R rows is read."""
+    base = torch.randn(2 * 7 + 1, 8, generator=torch.Generator().manual_seed(1))
+    base[-1] = float("nan")
+    buf = base[:14].view(2, 7, 8)
+    idx = torch.tensor([[[0, 6]], [[7, 3]]])
+    w = torch.ones(2, 1, 2)
+    out = combine_lanes(buf, idx, w)
+    assert bool(torch.isfinite(out).all())
+    assert torch.equal(out[1, 0], buf[1, 3])
+
+
+def test_combine_lanes_negative_index_raises():
+    with pytest.raises(IndexError, match="negative"):
+        combine_lanes(torch.zeros(1, 4, 8), torch.tensor([[[1, -1]]]),
+                      torch.ones(1, 1, 2))
+
+
+def test_combine_lanes_dispatch_is_by_device():
+    """CPU tensors take the plain version and count no launch; mixed
+    devices (``meta``) are refused; the CUDA wrapper refuses CPU
+    tensors."""
+    buf = torch.zeros(2, 4, 8)
+    idx = torch.zeros(2, 3, 1, dtype=torch.int32)
+    w = torch.ones(2, 3, 1)
+    with pytest.raises(ValueError, match="devices"):
+        combine_lanes(buf.to("meta"), idx, w)
+    with pytest.raises(ValueError, match="devices"):
+        combine_lanes(buf, idx, w.to("meta"))
+    before = dict(LAUNCHES)
+    with pytest.raises(ValueError, match="not cuda"):
+        cuda.combine_lanes(buf, idx, w)
+    assert combine_lanes(buf, idx, w).shape == (2, 3, 8)
     assert LAUNCHES == before

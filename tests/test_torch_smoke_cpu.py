@@ -141,13 +141,30 @@ def test_split_check_tells_the_split_from_one_rounding(name, monkeypatch):
         chip_smoke.split_check(name, a, "test")
 
 
+def test_call_sites_are_the_models_kernel_entry_points():
+    """Every call site the chip smoke binds (its oracle, its planted faults,
+    its recorder) is an attribute of the model module that holds the op it
+    names, so a renamed site fails here, not silently on the card."""
+    import importlib
+
+    from repro_torch.kernels import flash_attention, moe_pack, ssd_scan
+
+    chip_smoke = _chip_smoke()
+    ops = {"gather": moe_pack.pack, "combine": moe_pack.combine_lanes,
+           "flash": flash_attention.attention, "ssd": ssd_scan.ssd}
+    assert set(chip_smoke.CALL_SITES) == set(ops)
+    for key, (mod, attr) in chip_smoke.CALL_SITES.items():
+        module = importlib.import_module(f"repro_torch.models.{mod}")
+        assert getattr(module, attr) is ops[key], key
+
+
 def test_chip_smoke_serve_phase_runs_on_cpu():
     """The serve phase at the reduced DeepSeek-V2-Lite config: every mode
     serves all requests, the plain-version replay of the oracle's modes and
-    the ample-capacity modes agree, the replay refuses all three planted
-    faults (K6's last weight, K7's q_offset, K7's decode combine without
-    its last key split), and every K5-K7 path call and edge case is
-    checked."""
+    the ample-capacity modes agree, the replay refuses all four planted
+    faults (K6's last weight, K6 reading every lane's rows from lane 0,
+    K7's q_offset, K7's decode combine without its last key split), and
+    every K5-K7 path call and edge case is checked."""
     chip_smoke = _chip_smoke()
     res = chip_smoke.serve_run("cpu", reduced_config=True)
     assert set(res["modes"]) == set(chip_smoke.SERVE_MODES)
@@ -162,7 +179,8 @@ def test_chip_smoke_serve_phase_runs_on_cpu():
     assert res["modes"]["auto"]["decode_mode"] in ("a2a", "hier",
                                                   "hier_dedup")
     planted = res["modes"][chip_smoke.ORACLE_MODES[0]]["planted"]
-    assert len(planted) == 3
+    assert len(planted) == 4
+    assert "K6 reads every lane's rows from lane 0" in planted
     for got in planted.values():
         assert got["rel_err"] > chip_smoke.LOGIT_TOL or got["differ"] > 0
     assert set(res["kernels"]) == set(chip_smoke.SERVE_SOURCES)
