@@ -41,7 +41,8 @@ any phase fails:
    four); checks that the modes agree under ample capacity; holds every
    K5-K7 call of one prefill and one decode step, and edge cases, against
    the plain versions in bf16 and float32 (K6 also on a table whose next
-   row is NaN, which its sentinels must not read), times the largest
+   row is NaN, which its sentinels must not read; K5 with indices -1, N
+   and N + 5 before NaN rows, which must give zero rows), times the largest
    calls (from a cold L2), checks that K7 refuses a head dim it is not
    built for, and profiles a short serve run;
 6. hybrid serve: draws zamba2-7b at full width and depth in bf16 on the
@@ -54,8 +55,21 @@ any phase fails:
    kernels and through the plain versions of K7 and K8 (logits and greedy
    tokens must agree) and through the kernels with two K8 faults planted
    in the binding (the oracle must refuse both);
-7. checks that each path launched each of its kernels (the AMG solves
-   the launches per V-cycle of ``VCYCLE_LAUNCHES``), and prints one JSON
+7. partitioned, last: builds the hierarchy of the AMG phases' matrix by the
+   distributed setup (``DistributedHierarchy.setup_partitioned``: PMIS,
+   interpolation and the Galerkin SpGEMM over discovered exchanges), holds
+   it level by level to the host hierarchy (identical splittings, A / P / R
+   within 1e-12, rho within 1e-6), solves it blocked/off against the host
+   solver on its own hierarchy (K2 and K4 must launch; launches and a
+   profile beside the host-built solve's), solves it with the coarsest
+   level through a dense allgatherv (``coarse_gather`` auto / hier /
+   ring: iterations within 2 of the distributed coarse solve, solution
+   within 1e-8) and resumes a solve from its third iterate (``x0``);
+   then runs the dense executor (``bind_dense``) for every collective x
+   variant on three count sets, bitwise equal to ``execute_numpy``, timed;
+8. checks that each path launched each of its kernels (the AMG solves
+   the launches per V-cycle of ``VCYCLE_LAUNCHES``, the partitioned solve
+   K2 and K4), and prints one JSON
    line with every kernel's record: calls (``launches``) and
    ``cuda_launches`` on the main path, ``ms`` by CUDA events,
    ``device_ms`` and ``host_us`` (:func:`device_times`), bound, plain and
@@ -836,6 +850,274 @@ def solve_phase(h, b, device, block_cols: int, on_card: bool,
             dh.solve(b, tol=0.0, max_iters=1)
         del dh
     return per_solve, recorded
+
+
+# ------------------------------------------------- partitioned phase
+PARTITIONED = ("blocked", "off")     # the partitioned solve's variant / overlap
+COARSE_GATHERS = ("auto", "hier", "ring")
+COARSE_TOL, COARSE_MAX_ITERS = 1e-8, 60
+WARM_CYCLES = 3                      # the warm start resumes after these
+DENSE_N = 1 << 20                    # values of the dense executor's vectors
+
+
+def sparse_max_diff(X, Y) -> float:
+    """max |X - Y| over the union of both sparsity patterns, never
+    densified; inf if the shapes differ."""
+    import numpy as np
+
+    if tuple(X.shape) != tuple(Y.shape):
+        return float("inf")
+    n = X.shape[1]
+    keys = np.concatenate([
+        M.row_indices().astype(np.int64) * n + M.indices.astype(np.int64)
+        for M in (X, Y)])
+    vals = np.concatenate([X.data, -Y.data])
+    _, inv = np.unique(keys, return_inverse=True)
+    acc = np.bincount(inv, weights=vals)
+    return float(np.abs(acc).max()) if len(acc) else 0.0
+
+
+def check_setup_levels(h, hh) -> dict:
+    """The distributed setup's assembled hierarchy ``hh`` against the host
+    ``build_hierarchy``'s ``h``, at the reference's bars
+    (``tests/multidevice_progs/check_distributed_setup.py``): the same
+    level count, identical splittings, A / P / R within 1e-12, rho within
+    1e-6 relative."""
+    import numpy as np
+
+    if hh.n_levels != h.n_levels:
+        fail(f"partitioned setup: {hh.n_levels} levels, host {h.n_levels}")
+    worst = dict(op=0.0, rho=0.0)
+    for k, (lh, ld) in enumerate(zip(h.levels, hh.levels)):
+        if lh.splitting is not None and not (
+                ld.splitting is not None
+                and np.array_equal(lh.splitting, ld.splitting)):
+            fail(f"partitioned setup L{k}: splitting differs from the host")
+        pairs = [("A", lh.A, ld.A)]
+        if lh.P is not None:
+            if ld.P is None:
+                fail(f"partitioned setup L{k}: no P where the host has one")
+            pairs += [("P", lh.P, ld.P), ("R", lh.R, ld.R)]
+        for name, X, Y in pairs:
+            d = sparse_max_diff(X, Y)
+            worst["op"] = max(worst["op"], d)
+            if not d < 1e-12:
+                fail(f"partitioned setup L{k}: {name} differs from the "
+                     f"host's by {d}")
+        rel = abs(lh.rho - ld.rho) / max(lh.rho, 1.0)
+        worst["rho"] = max(worst["rho"], rel)
+        if not rel < 1e-6:
+            fail(f"partitioned setup L{k}: rho {ld.rho} vs host {lh.rho}")
+    return worst
+
+
+def partitioned_phase(h, b, host_setup_s: float, device, block_cols: int,
+                      on_card: bool, v_cycles: int, host_built: dict,
+                      coarse_max_iters: int = COARSE_MAX_ITERS):
+    """The distributed setup (``setup_partitioned``) of the fine matrix of
+    ``h`` over ``N_PROCS`` ranks, held level by level to ``h``; its
+    blocked/off solve against the host solver on its own hierarchy, with
+    launches and a profile beside the host-built solve's (``host_built``);
+    the coarse allgatherv in every mode against the distributed coarse
+    solve, to ``COARSE_TOL`` or ``coarse_max_iters`` V-cycles (the
+    reference's bar: iterations within 2, solution within 1e-8); and the
+    warm start.  Returns the phase's numbers and the
+    kernel launches of the partitioned solve's timed V-cycles."""
+    import numpy as np
+    import torch
+
+    from repro_torch.amg import (
+        DistributedHierarchy,
+        partition_fine_matrix,
+        solve,
+    )
+    from repro_torch.core import PlanCache
+    from repro_torch.kernels import LAUNCHES, reset_launches
+
+    variant, overlap = PARTITIONED
+    blocks, off = partition_fine_matrix(h.levels[0].A, N_PROCS)
+    cache = PlanCache()
+    t0 = time.perf_counter()
+    dh = DistributedHierarchy.setup_partitioned(
+        blocks, off, procs_per_region=PROCS_PER_REGION, strategy="auto",
+        cache=cache, spmv_variant=variant, spmv_overlap=overlap,
+        spmv_block_cols=block_cols, device=device,
+    )
+    setup_s = time.perf_counter() - t0
+    info = dh.setup_info
+    log(f"partitioned setup: {setup_s:.2f} s (distributed setup and the "
+        f"lowering; host build_hierarchy {host_setup_s:.2f} s in this run), "
+        f"{cache.stats()['namespaces']['collective']['misses']} persistent "
+        "collectives planned")
+    log(info.describe())
+    hh = info.to_host_hierarchy()
+    worst = check_setup_levels(h, hh)
+    log(f"partitioned setup matches the host hierarchy: {h.n_levels} "
+        f"levels, splittings identical, max operator difference "
+        f"{worst['op']:.3e}, max rho rel difference {worst['rho']:.3e}")
+
+    t0 = time.perf_counter()
+    _, host_hist = solve(hh, b, tol=0.0, max_iters=v_cycles)
+    log(f"host solve on the partitioned hierarchy: {v_cycles} V-cycles in "
+        f"{time.perf_counter() - t0:.2f} s")
+    dh.solve(b, tol=0.0, max_iters=1)               # warm-up V-cycle
+    if on_card:
+        torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    _, hist = dh.solve(b, tol=0.0, max_iters=v_cycles)
+    if on_card:
+        torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / v_cycles
+    launches = {k: LAUNCHES[k] for k in REPLACES}
+    per_cycle = {k: n / v_cycles for k, n in launches.items() if n}
+    dev = float(np.max(np.abs(np.asarray(hist) - np.asarray(host_hist))
+                       / np.maximum(np.abs(host_hist), 1e-300)))
+    log(f"partitioned solve {variant}/{overlap}: {ms:.3f} ms per V-cycle, "
+        f"max rel history deviation {dev:.3e}, launches per V-cycle "
+        f"{per_cycle} (host-built {variant}/{overlap}: "
+        f"{VCYCLE_LAUNCHES[PARTITIONED]})")
+    log(dh.describe())
+    if not (len(hist) == len(host_hist) and np.allclose(
+            hist, host_hist, rtol=HIST_RTOL, atol=HIST_ATOL)):
+        fail(f"partitioned solve: history {hist} vs host {host_hist}")
+    out = dict(setup_s=setup_s, host_setup_s=host_setup_s,
+               ms_per_vcycle=ms, max_rel_dev=dev, launches=launches,
+               n_levels=info.n_levels)
+    if on_card:
+        prof = profile_solve(dh, b, ms)
+        out.update(prof)
+        log(f"  profile ({PROFILE_CYCLES} V-cycles): device busy "
+            f"{prof['busy_ms']:.3f} ms per V-cycle, idle share "
+            f"{prof['idle_share']:.3f}, {prof['device_ops']:.0f} device ops "
+            f"per V-cycle (host-built {variant}/{overlap}: "
+            f"{host_built['ms_per_vcycle']:.3f} ms wall, "
+            f"{host_built['busy_ms']:.3f} busy, idle "
+            f"{host_built['idle_share']:.3f}, "
+            f"{host_built['device_ops']:.0f} ops)\n"
+            f"  most device ms per V-cycle: {prof['top_device']}")
+
+    # the coarse allgatherv in every mode, on the same levels
+    def to_tol(d):
+        """(solution, history, wall ms per V-cycle) of a solve to
+        COARSE_TOL."""
+        if on_card:
+            torch.cuda.synchronize()
+        t = time.perf_counter()
+        x, hist_d = d.solve(b, tol=COARSE_TOL, max_iters=coarse_max_iters)
+        if on_card:
+            torch.cuda.synchronize()
+        return x, hist_d, (time.perf_counter() - t) * 1e3 / len(hist_d)
+
+    x_off, hist_off, ms_off = to_tol(dh)
+    log(f"coarse_gather=off: {len(hist_off)} iterations to "
+        f"{hist_off[-1]:.3e}, {ms_off:.3f} ms per V-cycle")
+    out["coarse"] = {"off": dict(iters=len(hist_off), ms_per_vcycle=ms_off)}
+    for cg in COARSE_GATHERS:
+        dc = DistributedHierarchy(
+            dh.levels, dh.device, dh.topo, dh.cache, dh.dtype, dh.strategy,
+            dh.params, dh.value_bytes, coarse_gather=cg)
+        before = dict(LAUNCHES)
+        x, hist_cg, ms_cg = to_tol(dc)
+        n = len(hist_cg)
+        rel = float(np.max(np.abs(x - x_off)) / np.max(np.abs(x_off)))
+        per = {k: (LAUNCHES[k] - before[k]) / n for k in REPLACES
+               if LAUNCHES[k] - before[k]}
+        log(f"coarse_gather={cg}: {n} iterations (off {len(hist_off)}), "
+            f"final {hist_cg[-1]:.3e}, {ms_cg:.3f} ms per V-cycle, solution "
+            f"rel max difference {rel:.3e}, launches per V-cycle {per}; "
+            f"{dc.coarse_selection}")
+        if not (n <= len(hist_off) + 2 and rel < 1e-8):
+            fail(f"coarse_gather={cg}: {n} iterations (off "
+                 f"{len(hist_off)}), final {hist_cg[-1]}, solution off by "
+                 f"{rel}")
+        rec = dict(iters=n, rel=rel, ms_per_vcycle=ms_cg,
+                   chosen=dc.coarse_selection.chosen,
+                   launches_per_vcycle=per)
+        if on_card and cg == "auto":
+            rec.update(profile_solve(dc, b, ms_cg))
+            log(f"  profile coarse_gather=auto: {rec['device_ops']:.0f} "
+                f"device ops per V-cycle (off {out['device_ops']:.0f}), "
+                f"busy {rec['busy_ms']:.3f} ms, idle share "
+                f"{rec['idle_share']:.3f}")
+        out["coarse"][cg] = rec
+        del dc
+
+    # the warm start resumes the history after WARM_CYCLES V-cycles
+    warm = min(WARM_CYCLES, v_cycles - 1)
+    x_w, _ = dh.solve(b, tol=0.0, max_iters=warm)
+    _, tail = dh.solve(b, tol=0.0, max_iters=v_cycles - warm, x0=x_w)
+    want = hist[warm:]
+    if not (len(tail) == len(want) and np.allclose(
+            tail, want, rtol=HIST_RTOL, atol=HIST_ATOL)):
+        fail(f"warm start: history {tail} vs the full solve's {want}")
+    log(f"warm start from V-cycle {warm}: {len(tail)} V-cycles, history "
+        "equal to the full solve's at rtol 1e-8, atol 1e-15")
+    counts = np.diff(np.asarray(dh.levels[-1].A.part.col_offsets))
+    return out, [int(c) for c in counts]
+
+
+def dense_phase(coarse_counts, device, on_card: bool,
+                dense_n: int = DENSE_N) -> list:
+    """``bind_dense`` for every dense collective x variant under
+    ``Topology(N_PROCS, PROCS_PER_REGION)`` on three count sets (the
+    coarsest level's, an even and a ragged split of ``dense_n`` values),
+    float64: bitwise equal to ``execute_numpy``, and timed by CUDA events
+    over 20 calls."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import (
+        DENSE_COLLECTIVES,
+        Topology,
+        bind_dense,
+        build_dense_plan,
+        dense_variants,
+        even_counts,
+        pack_dense_input,
+        unpack_dense_output,
+    )
+
+    topo = Topology(N_PROCS, PROCS_PER_REGION)
+    where = (nvidia_smi_line() if on_card
+             else "the CPU (a rehearsal, not a measurement)")
+    log(f"dense executor, float64, ms by CUDA events over 20 calls on "
+        f"{where}")
+    rng = np.random.default_rng(2)
+    cuts = np.sort(rng.choice(np.arange(1, dense_n), N_PROCS - 1,
+                              replace=False))
+    count_sets = {
+        "coarsest": np.asarray(coarse_counts, dtype=np.int64),
+        "even": even_counts(dense_n, N_PROCS),
+        "ragged": np.diff(np.concatenate([[0], cuts, [dense_n]])),
+    }
+    rows = []
+    for label, counts in count_sets.items():
+        n = int(counts.sum())
+        for coll in DENSE_COLLECTIVES:
+            if coll == "allgatherv":
+                vals = [rng.normal(size=int(c)) for c in counts]
+            else:
+                vals = [rng.normal(size=n) for _ in range(N_PROCS)]
+            for variant in dense_variants(coll, topo):
+                plan = build_dense_plan(coll, counts, topo, variant)
+                fn = bind_dense(plan, device)
+                x = torch.as_tensor(pack_dense_input(plan, vals),
+                                    device=device)
+                got = unpack_dense_output(plan, fn(x))
+                want = plan.execute_numpy(vals)
+                if not all(np.array_equal(g, w) for g, w in zip(got, want)):
+                    fail(f"dense {coll}/{variant} on {label} counts: not "
+                         "bitwise equal to execute_numpy")
+                ms = time_ms(lambda: fn(x), on_card)
+                rows.append(dict(collective=coll, variant=variant,
+                                 counts=label, n=n, rounds=plan.n_rounds,
+                                 ms=ms))
+                log(f"dense {coll:14s} {variant:4s} {label:8s} n={n:>8d} "
+                    f"rounds={plan.n_rounds:2d}: bitwise equal to "
+                    f"execute_numpy, {ms:.4f} ms")
+                del x, got
+    return rows
 
 
 # ------------------------------------------------------------- serve phase
@@ -1642,6 +1924,40 @@ def k6_guard_check(device, gen) -> float:
     return abs_err
 
 
+def k5_guard_check(device, gen) -> None:
+    """K5 with indices -1, N and N + 5 on a table whose next rows are NaN:
+    x [777, 2048] is a view of the first 777 rows of a tensor whose rows
+    past it are NaN.  The output must be finite, zero in those rows (an
+    index outside [0, N) reads a zero row and loads nothing) and equal to
+    the plain version, in bf16 and float32."""
+    import torch
+
+    N, D, M = 777, 2048, 96
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[1]
+        base = torch.randn(N + 6, D, generator=gen).to(device, dtype)
+        base[N:] = float("nan")
+        idx = torch.randint(0, N, (M,), generator=gen, dtype=torch.int32)
+        bad = torch.arange(0, M, 4)                 # every 4th row
+        idx[bad] = torch.tensor([-1, N, N + 5],
+                                dtype=torch.int32)[torch.arange(len(bad)) % 3]
+        a = dict(x=base[:N], idx=idx.to(device))
+        got = serve_kernel_call("gather_rows", a)
+        want = serve_plain_call("gather_rows", a)
+        if not bool(torch.isfinite(got).all()):
+            fail(f"gather_rows guard call {dname}: non-finite output, an "
+                 "index outside [0, N) read past the table")
+        if bool(got[bad.to(device)].any()):
+            fail(f"gather_rows guard call {dname}: a row of an index "
+                 "outside [0, N) is not zero")
+        if not torch.equal(got, want):
+            fail(f"gather_rows guard call {dname}: differs from "
+                 "gather_rows_ref")
+    log(f"kernel gather_rows        guard   (x [{N}, {D}] before NaN rows, "
+        "indices -1, N, N + 5): finite, zero rows, equal to the plain "
+        "version in bf16 and float32")
+
+
 def unbuilt_head_dim_raises(device) -> None:
     """K7 on the card refuses a head dim its source is not built for (24)
     rather than padding it."""
@@ -2083,6 +2399,7 @@ def serve_run(device: str = "cuda", reduced_config: bool = False) -> dict:
     err = k6_guard_check(device, gen)
     kernels["combine_rows"]["max_abs_err"] = max(
         kernels["combine_rows"]["max_abs_err"], err)
+    k5_guard_check(device, gen)
     prof = None
     if on_card:
         unbuilt_head_dim_raises(device)
@@ -2098,9 +2415,10 @@ def serve_run(device: str = "cuda", reduced_config: bool = False) -> dict:
 
 def run(device: str = "cuda", rows: int = 524_288, block_cols: int = 512,
         v_cycles: int = V_CYCLES) -> dict:
-    """All phases at ``rows`` unknowns on ``device``, ``v_cycles`` timed
+    """The AMG phases at ``rows`` unknowns on ``device``, ``v_cycles`` timed
     V-cycles per solve; returns the kernel records, the launch counts of
-    the main path and the solve results."""
+    the main path, the solve results and, under ``host``, what
+    :func:`partitioned_run` takes from them."""
     import numpy as np
     import torch
 
@@ -2110,7 +2428,8 @@ def run(device: str = "cuda", rows: int = 524_288, block_cols: int = 512,
     on_card = device == "cuda"
     t0 = time.perf_counter()
     h = build_hierarchy(paper_problem(rows))
-    log(f"host setup: {time.perf_counter() - t0:.2f} s")
+    host_setup_s = time.perf_counter() - t0
+    log(f"host setup: {host_setup_s:.2f} s")
     log(h.describe())
     exchange_phase(h, device, on_card)
     b = np.random.default_rng(0).normal(size=h.levels[0].A.nrows)
@@ -2124,7 +2443,30 @@ def run(device: str = "cuda", rows: int = 524_288, block_cols: int = 512,
     kernels, planted = path_kernel_phase(recorded, on_card)
     synthetic_kernel_phase(h, device, block_cols, on_card, kernels)
     return dict(kernels=kernels, launches=launches,
-                cuda_launches=cuda_launches, solves=solves, planted=planted)
+                cuda_launches=cuda_launches, solves=solves, planted=planted,
+                host=dict(h=h, b=b, setup_s=host_setup_s, device=device,
+                          block_cols=block_cols, v_cycles=v_cycles))
+
+
+def partitioned_run(amg: dict, coarse_max_iters: int = COARSE_MAX_ITERS,
+                    dense_n: int = DENSE_N) -> dict:
+    """The partitioned phase on the hierarchy, vector and settings of the
+    AMG phases' result ``amg`` (:func:`run`), its coarse-gather solves to
+    ``coarse_max_iters``, then the dense executor on ``dense_n`` values.
+    ``main`` runs it after the serve paths."""
+    host = amg["host"]
+    device = host["device"]
+    on_card = device == "cuda"
+    t0 = time.perf_counter()
+    partitioned, coarse_counts = partitioned_phase(
+        host["h"], host["b"], host["setup_s"], device, host["block_cols"],
+        on_card, host["v_cycles"], amg["solves"][PARTITIONED],
+        coarse_max_iters)
+    t1 = time.perf_counter()
+    dense = dense_phase(coarse_counts, device, on_card, dense_n)
+    log(f"partitioned phase {t1 - t0:.1f} s, dense phase "
+        f"{time.perf_counter() - t1:.1f} s")
+    return dict(partitioned=partitioned, dense=dense)
 
 
 def build_kernels() -> None:
@@ -2187,6 +2529,15 @@ def main() -> int:
     if missing:
         fail(f"kernels never launched on the hybrid path: {missing}")
     log(f"hybrid phase done at {time.perf_counter() - t_start:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()            # zamba2's weights leave the card
+    part = partitioned_run(res)["partitioned"]["launches"]
+    missing = [k for k in ("spmv_ell_blocked", "spmv_ell_blocked_skip")
+               if part[k] <= 0]
+    if missing:
+        fail(f"kernels never launched on the partitioned path: {missing}")
+    log(f"partitioned and dense phases done at "
+        f"{time.perf_counter() - t_start:.1f} s")
     timing = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
               "device_ms", "host_us", "library_device_ms")
     records = []
@@ -2196,6 +2547,7 @@ def main() -> int:
             name=name, route="cuda", source=SOURCE, replaces=REPLACES[name],
             launches=res["launches"][name],
             cuda_launches=res["cuda_launches"][name],
+            partitioned_launches=part[name],
             max_abs_err=rec["max_abs_err"],
             **{k: rec[k] for k in timing}))
     # K7 runs on both serve paths: its launches are both paths' and its

@@ -10,6 +10,13 @@ from .hierarchy import (
     v_cycle,
 )
 from .distributed import DistOp, DistributedHierarchy, DistributedLevel
+from .distributed_setup import (
+    DistributedSetup,
+    ExchangeRecord,
+    SetupLevel,
+    distributed_build_hierarchy,
+    partition_fine_matrix,
+)
 
 __all__ = [
     "diffusion_2d", "paper_problem", "rotated_anisotropic_stencil",
@@ -17,4 +24,6 @@ __all__ = [
     "Hierarchy", "Level", "build_hierarchy", "from_reference_hierarchy",
     "jacobi", "solve", "v_cycle",
     "DistOp", "DistributedHierarchy", "DistributedLevel",
+    "DistributedSetup", "ExchangeRecord", "SetupLevel",
+    "distributed_build_hierarchy", "partition_fine_matrix",
 ]

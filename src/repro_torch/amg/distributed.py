@@ -13,15 +13,23 @@ and a ``NeighborAlltoallV`` initialized *once* with the Section-5 dynamic
 selector (``strategy="auto"``) under the given machine model.  All plans
 and bound executors go through a :class:`~repro_torch.core.cache.PlanCache`,
 so repeated setups on the same grid skip re-planning entirely.
+:meth:`DistributedHierarchy.setup_partitioned` builds the hierarchy itself
+from per-rank row blocks (``amg.distributed_setup``: PMIS, interpolation
+and the Galerkin SpGEMM over discovered exchanges) and lowers the blocks
+straight to the same solve.
 
 Solve: a V-cycle (Chebyshev smoother, degrees matching the host solver
 exactly) over ``[P, pad]`` block vectors, run eagerly; matvecs compose the
 plan executor with the ELL SpMV kernels (``sparse.device``).  With the same
 rho estimates the residual history tracks the host
-:func:`~repro_torch.amg.hierarchy.solve` to rounding error.
+:func:`~repro_torch.amg.hierarchy.solve` to rounding error.  With
+``coarse_gather`` on, the coarsest level gathers its rhs with a plan-based
+dense allgatherv (``core.dense``) and smooths replicated on a dense
+operator.
 
-Entry points: ``DistributedHierarchy.setup(...)``, ``.solve(b)``,
-``.describe()``, ``.selection_table()``, ``.kernel_table()``.
+Entry points: ``DistributedHierarchy.setup(...)``,
+``.setup_partitioned(...)``, ``.solve(b, x0=...)``, ``.describe()``,
+``.selection_table()``, ``.kernel_table()``.
 """
 from __future__ import annotations
 
@@ -34,6 +42,7 @@ import torch
 from .. import resolve_device
 from ..core.cache import PlanCache, default_plan_cache
 from ..core.costmodel import LASSEN, MachineParams, plan_time
+from ..core.dense import DenseSelection, bind_dense
 from ..core.neighborhood import NeighborAlltoallV
 from ..core.plan import Topology
 from ..core.selection import SelectionReport
@@ -55,6 +64,13 @@ from ..sparse.partition import (
     PartitionedCSR,
     block_offsets,
     partition_rect_csr,
+    partitioned_from_blocks,
+    partitioned_to_global,
+)
+from .distributed_setup import (
+    DistributedSetup,
+    _block_inv_diag,
+    distributed_build_hierarchy,
 )
 from .hierarchy import Hierarchy, inv_diag
 
@@ -112,6 +128,35 @@ def _default_procs_per_region(n_procs: int) -> int:
     return 1
 
 
+def _op_maker(cache: PlanCache, topo: Topology, strategy: str,
+                params: MachineParams, value_bytes: int, dtype,
+                spmv_variant: str, spmv_vmem_limit: Optional[int],
+                spmv_block_cols: int, spmv_overlap: str,
+                spmv_overlap_figures: Optional[Dict[str, float]]
+                ) -> Callable[[PartitionedCSR], DistOp]:
+    """``make_op(part)``: a partitioned operator with its cached collective
+    and its kernel and overlap selections."""
+    figures = dict(spmv_overlap_figures or {})
+
+    def make_op(part: PartitionedCSR) -> DistOp:
+        coll = cache.collective(
+            part.pattern, topo, strategy, value_bytes, params
+        )
+        sel = select_spmv_kernel(
+            part, variant=spmv_variant,
+            vmem_limit_bytes=spmv_vmem_limit,
+            value_bytes=value_bytes, block_cols=spmv_block_cols,
+        )
+        ell = partitioned_to_device(part, sel, dtype, spmv_block_cols)
+        osel = select_spmv_overlap(
+            part, plan_time(coll.plan, params),
+            mode=spmv_overlap, value_bytes=value_bytes, **figures,
+        )
+        return DistOp(part, coll, ell, sel, osel)
+
+    return make_op
+
+
 class DistributedHierarchy:
     """A host AMG hierarchy lowered to a rank-stacked device solve."""
 
@@ -125,6 +170,7 @@ class DistributedHierarchy:
         strategy: str,
         params: MachineParams,
         value_bytes: int,
+        coarse_gather: str = "off",
     ):
         self.levels = levels
         self.device = device
@@ -136,11 +182,22 @@ class DistributedHierarchy:
         self.strategy = strategy
         self.params = params
         self.value_bytes = value_bytes
+        # coarsest-level dense allgatherv policy: "off" keeps the
+        # distributed Chebyshev; "auto" / "hier" / "ring" gather the
+        # coarse rhs with a plan-based dense collective and smooth
+        # replicated (the selection lands in coarse_selection)
+        self.coarse_gather = coarse_gather
+        self.coarse_selection: Optional[DenseSelection] = None
+        # the distributed-setup record (per-level blocks + exchange
+        # accounting) of setup_partitioned; None for a host hierarchy
+        self.setup_info: Optional[DistributedSetup] = None
         self._Amv = [self._bind(lv.A) for lv in levels]
         self._Rmv = [self._bind(lv.R) if lv.R is not None else None
                      for lv in levels]
         self._Pmv = [self._bind(lv.P) if lv.P is not None else None
                      for lv in levels]
+        self._coarse_fn = (self._bind_coarse() if coarse_gather != "off"
+                           else None)
 
     # ------------------------------------------------------------- setup
     @classmethod
@@ -159,6 +216,7 @@ class DistributedHierarchy:
         spmv_block_cols: int = DEFAULT_BLOCK_COLS,
         spmv_overlap: str = "off",
         spmv_overlap_figures: Optional[Dict[str, float]] = None,
+        coarse_gather: str = "off",
         device=None,
     ) -> "DistributedHierarchy":
         """Partition every level over ``n_procs`` ranks and init its
@@ -174,31 +232,20 @@ class DistributedHierarchy:
         selects per operator from the device figures
         ``spmv_overlap_figures`` (``hbm_bw``, ``vpu_flops``, ``launch_s``),
         which it then needs.  All choices are recorded on each
-        :class:`DistOp`.
+        :class:`DistOp`.  ``coarse_gather`` is ``"off"``, ``"auto"``,
+        ``"hier"`` or ``"ring"`` (see :meth:`_bind_coarse`).
         """
         device = resolve_device(device)
         topo = Topology(
             n_procs, procs_per_region or _default_procs_per_region(n_procs)
         )
         cache = cache if cache is not None else default_plan_cache()
-        figures = dict(spmv_overlap_figures or {})
+        build = _op_maker(cache, topo, strategy, params, value_bytes, dtype,
+                            spmv_variant, spmv_vmem_limit, spmv_block_cols,
+                            spmv_overlap, spmv_overlap_figures)
 
         def make_op(mat, row_off, col_off) -> DistOp:
-            part = partition_rect_csr(mat, row_off, col_off)
-            coll = cache.collective(
-                part.pattern, topo, strategy, value_bytes, params
-            )
-            sel = select_spmv_kernel(
-                part, variant=spmv_variant,
-                vmem_limit_bytes=spmv_vmem_limit,
-                value_bytes=value_bytes, block_cols=spmv_block_cols,
-            )
-            ell = partitioned_to_device(part, sel, dtype, spmv_block_cols)
-            osel = select_spmv_overlap(
-                part, plan_time(coll.plan, params),
-                mode=spmv_overlap, value_bytes=value_bytes, **figures,
-            )
-            return DistOp(part, coll, ell, sel, osel)
+            return build(partition_rect_csr(mat, row_off, col_off))
 
         offs = [block_offsets(lvl.A.nrows, n_procs) for lvl in h.levels]
         levels: List[DistributedLevel] = []
@@ -227,7 +274,96 @@ class DistributedHierarchy:
                             kernel=A_op.kernel_variant,
                             overlap=A_op.overlap_mode)
             return cls(levels, device, topo, cache, dtype, strategy, params,
-                       value_bytes)
+                       value_bytes, coarse_gather=coarse_gather)
+
+    @classmethod
+    def setup_partitioned(
+        cls,
+        A_blocks,
+        row_offsets: np.ndarray,
+        procs_per_region: Optional[int] = None,
+        strategy: str = "auto",
+        params: MachineParams = LASSEN,
+        value_bytes: int = 8,
+        cache: Optional[PlanCache] = None,
+        dtype=np.float64,
+        max_levels: int = 25,
+        min_coarse: int = 64,
+        strength_theta: float = 0.25,
+        seed: int = 0,
+        spmv_variant: str = "flat",
+        spmv_vmem_limit: Optional[int] = None,
+        spmv_block_cols: int = DEFAULT_BLOCK_COLS,
+        spmv_overlap: str = "off",
+        spmv_overlap_figures: Optional[Dict[str, float]] = None,
+        coarse_gather: str = "off",
+        device=None,
+    ) -> "DistributedHierarchy":
+        """End-to-end distributed build: partitioned fine matrix -> solve.
+
+        ``A_blocks[p]`` are rank ``p``'s rows of the fine operator (global
+        columns), ``row_offsets`` their block boundaries.  Runs the
+        distributed *setup* (``amg.distributed_setup``: PMIS /
+        interpolation / Galerkin SpGEMM over sparse dynamic data
+        exchanges) and lowers the resulting per-rank blocks straight to
+        the solve on ``device``: the global operators are never assembled.
+        Setup and solve share one :class:`PlanCache`; for structurally
+        symmetric operators the setup halo pattern IS the solve halo
+        pattern, so the solve collectives come out of the cache pre-built.
+        The other arguments are :meth:`setup`'s; the setup record lands in
+        :attr:`setup_info`.
+        """
+        device = resolve_device(device)
+        n_procs = len(A_blocks)
+        topo = Topology(
+            n_procs, procs_per_region or _default_procs_per_region(n_procs)
+        )
+        cache = cache if cache is not None else default_plan_cache()
+        setup = distributed_build_hierarchy(
+            A_blocks, row_offsets, topo, cache=cache,
+            max_levels=max_levels, min_coarse=min_coarse,
+            strength_theta=strength_theta, seed=seed,
+            strategy=strategy, value_bytes=value_bytes, params=params,
+        )
+        build = _op_maker(cache, topo, strategy, params, value_bytes, dtype,
+                            spmv_variant, spmv_vmem_limit, spmv_block_cols,
+                            spmv_overlap, spmv_overlap_figures)
+
+        def make_op(blocks, row_off, col_off) -> DistOp:
+            return build(partitioned_from_blocks(blocks, row_off, col_off))
+
+        levels: List[DistributedLevel] = []
+        with _OBS.span("amg/setup_partitioned", n_procs=n_procs,
+                       strategy=strategy, levels=len(setup.levels)):
+            for k, sl in enumerate(setup.levels):
+                with _OBS.span("amg/build_level", level=k,
+                               n=sl.nrows) as lsp:
+                    A_op = make_op(sl.A_blocks, sl.row_offsets,
+                                   sl.row_offsets)
+                    pad = int(np.diff(sl.row_offsets).max())
+                    dinv = np.zeros((n_procs, pad), dtype=dtype)
+                    for p, Ab in enumerate(sl.A_blocks):
+                        dinv[p, : Ab.nrows] = _block_inv_diag(
+                            Ab, int(sl.row_offsets[p])
+                        ).astype(dtype)
+                    dl = DistributedLevel(
+                        index=k, n=sl.nrows, pad=pad, A=A_op,
+                        dinv=torch.as_tensor(dinv, device=device),
+                        rho=sl.rho or 1.0,
+                    )
+                    if sl.P_blocks is not None and k + 1 < len(setup.levels):
+                        dl.R = make_op(sl.R_blocks, sl.coarse_offsets,
+                                       sl.row_offsets)
+                        dl.P = make_op(sl.P_blocks, sl.row_offsets,
+                                       sl.coarse_offsets)
+                    levels.append(dl)
+                    lsp.set(strategy=A_op.strategy,
+                            kernel=A_op.kernel_variant,
+                            overlap=A_op.overlap_mode)
+            dh = cls(levels, device, topo, cache, dtype, strategy, params,
+                     value_bytes, coarse_gather=coarse_gather)
+        dh.setup_info = setup
+        return dh
 
     # ------------------------------------------------- device programs
     def _bind(self, op: DistOp) -> Callable:
@@ -242,6 +378,72 @@ class DistributedHierarchy:
             op.ell, exchange, overlap=(op.overlap_mode == "on"),
             device=self.device,
         )
+
+    def _bind_coarse(self) -> Callable:
+        """Coarsest-level solve by dense allgatherv + replicated Chebyshev.
+
+        The coarsest packed rhs ``[P, pad]`` is exactly the allgatherv
+        input layout (``counts`` = real block sizes, ``cmax`` = pad): each
+        rank contributes its block, the plan-based gather replicates the
+        full coarse vector on every rank, and a dense padded coarse
+        operator (zeros at padding rows/cols, so no unpadding is needed)
+        runs the same degree-24 Chebyshev arithmetic as :meth:`_cheby`
+        on every rank's copy; each rank then keeps its own block.  The
+        :class:`~repro_torch.core.dense.DenseSelection` lands in
+        :attr:`coarse_selection`.
+        """
+        lv = self.levels[-1]
+        counts = np.diff(np.asarray(lv.A.part.col_offsets, dtype=np.int64))
+        plan, sel = self.cache.dense_collective(
+            "allgatherv", counts, self.topo, variant=self.coarse_gather,
+            value_bytes=self.value_bytes, params=self.params,
+        )
+        self.coarse_selection = sel
+        gather = bind_dense(plan, self.device)
+
+        P_, pad = self.topo.n_procs, lv.pad
+        Ag = partitioned_to_global(lv.A.part)
+        # global index -> padded position p*pad + local slot
+        pos = np.concatenate([
+            p * pad + np.arange(int(counts[p]), dtype=np.int64)
+            for p in range(P_)
+        ])
+        Ad = np.zeros((P_ * pad, P_ * pad), dtype=self.dtype)
+        rows = Ag.row_indices().astype(np.int64)
+        cols = Ag.indices.astype(np.int64)
+        np.add.at(Ad, (pos[rows], pos[cols]), Ag.data.astype(self.dtype))
+        # the rows of every rank's copy times Ad: x @ Ad^T
+        AdT = torch.as_tensor(Ad.T.copy(), device=self.device)
+        dinv = lv.dinv.reshape(-1)
+        ranks = torch.arange(P_, device=self.device)
+
+        rho = lv.rho
+        upper = 1.1 * rho
+        lower = 0.30 * rho
+        theta = 0.5 * (upper + lower)
+        delta = 0.5 * (upper - lower)
+        sigma = theta / delta
+
+        def coarse_cheby(b, degree=24):
+            x = torch.zeros_like(b)
+            rho_k = 1.0 / sigma
+            r = dinv * (b - x @ AdT)
+            p = r / theta
+            x = x + p
+            for _ in range(degree - 1):
+                rho_next = 1.0 / (2.0 * sigma - rho_k)
+                r = dinv * (b - x @ AdT)
+                p = rho_next * rho_k * p + 2.0 * rho_next / delta * r
+                x = x + p
+                rho_k = rho_next
+            return x
+
+        def coarse_fn(b):                  # [P, pad], rank p's block in row p
+            full = gather(b).reshape(P_, P_ * pad)   # every rank's copy
+            x = coarse_cheby(full).reshape(P_, P_, pad)
+            return x[ranks, ranks]
+
+        return coarse_fn
 
     def _cheby(self, k: int, x, b, degree: int):
         """Chebyshev smoother: same arithmetic as the host ``chebyshev``."""
@@ -270,6 +472,8 @@ class DistributedHierarchy:
         lv = self.levels[k]
         zero = torch.zeros_like(b)
         if lv.R is None or k == len(self.levels) - 1:
+            if self._coarse_fn is not None:
+                return self._coarse_fn(b)
             return self._cheby(k, zero, b, degree=24)
         x = self._cheby(k, zero, b, degree=3)       # pre-smooth
         r = b - self._Amv[k](x)
@@ -291,19 +495,27 @@ class DistributedHierarchy:
         b: np.ndarray,
         tol: float = 1e-8,
         max_iters: int = 100,
+        x0: Optional[np.ndarray] = None,
     ) -> Tuple[np.ndarray, List[float]]:
         """AMG-preconditioned stationary iteration on the device.
 
         Mirrors the host :func:`repro_torch.amg.hierarchy.solve` loop
         (residual check before update) so histories are comparable.
+        ``x0`` (a global host vector) warm-starts the iteration: a solve
+        resumed from the iterate of an earlier one continues its
+        history.
         """
         lv0 = self.levels[0]
-        bg = torch.as_tensor(
-            pack_vector(lv0.A.part.col_offsets, lv0.pad,
-                        b.astype(self.dtype)),
-            device=self.device,
-        )
-        x = torch.zeros_like(bg)
+
+        def packed(v: np.ndarray) -> torch.Tensor:
+            return torch.as_tensor(
+                pack_vector(lv0.A.part.col_offsets, lv0.pad,
+                            np.asarray(v).astype(self.dtype)),
+                device=self.device,
+            )
+
+        bg = packed(b)
+        x = torch.zeros_like(bg) if x0 is None else packed(x0)
         nb = max(float(np.linalg.norm(b)), 1e-300)
         hist: List[float] = []
         with _OBS.span("amg/solve", n=lv0.n, tol=tol,
@@ -368,4 +580,7 @@ class DistributedHierarchy:
                 f"inter_bytes={t['inter_bytes']:8d}"
                 + (f" R={lv.R.strategy} P={lv.P.strategy}" if lv.R else "")
             )
+        if self.coarse_selection is not None:
+            lines.append(f"  coarse_gather={self.coarse_gather}: "
+                         f"{self.coarse_selection}")
         return "\n".join(lines)

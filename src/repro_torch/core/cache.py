@@ -17,9 +17,13 @@ The MoE dispatch has the same amortization surface
 (``models.moe.moe_plan_for``): :meth:`PlanCache.moe_plan` holds dispatch
 plans keyed on geometry plus the routing-pattern fingerprint, and
 :meth:`PlanCache.moe_executor` the per-geometry dispatch executors, with the
-reference's keys.  The flat hit/miss counters aggregate the plan namespaces
-(``collective`` + ``moe_plan``) and the executor namespaces (``executor`` +
-``moe_executor``), as ``repro``'s do.
+reference's keys.  So do the dense collectives (``core.dense``):
+:meth:`PlanCache.dense_collective` holds selected round schedules keyed on
+the dense fingerprint, variant and machine params, and
+:meth:`PlanCache.dense_executor` their bound executors.  The flat hit/miss
+counters aggregate the plan namespaces (``collective`` + ``moe_plan`` +
+``dense_plan``) and the executor namespaces (``executor`` +
+``moe_executor`` + ``dense_executor``), as ``repro``'s do.
 """
 from __future__ import annotations
 
@@ -98,7 +102,7 @@ class PlanCache:
     """Cache of initialized collectives and bound executors.
 
     Bounded: each namespace (``collective``, ``executor``, ``moe_plan``,
-    ``moe_executor``) holds at most
+    ``moe_executor``, ``dense_plan``, ``dense_executor``) holds at most
     :attr:`max_entries` entries under LRU eviction; evictions are counted.
     :meth:`stats` reports hits, misses and entries per namespace and the
     init seconds spent and saved.
@@ -114,10 +118,14 @@ class PlanCache:
     # fingerprint, and executors keyed on the fingerprint-free geometry
     _moe_plans: Dict[Tuple, Tuple[Any, float]] = field(default_factory=dict)
     _moe_execs: Dict[Tuple, Callable] = field(default_factory=dict)
+    # dense collectives: ((DensePlan, DenseSelection), init seconds) keyed
+    # on the dense fingerprint + variant + params, and bound executors
+    _dense_plans: Dict[Tuple, Tuple[Any, float]] = field(default_factory=dict)
+    _dense_execs: Dict[Tuple, Callable] = field(default_factory=dict)
     _ns_counts: Dict[str, Dict[str, int]] = field(default_factory=dict)
 
-    PLAN_NAMESPACES = ("collective", "moe_plan")
-    EXEC_NAMESPACES = ("executor", "moe_executor")
+    PLAN_NAMESPACES = ("collective", "moe_plan", "dense_plan")
+    EXEC_NAMESPACES = ("executor", "moe_executor", "dense_executor")
 
     def _ns_sum(self, namespaces: Tuple[str, ...], which: str) -> int:
         return sum(self._ns(ns)[which] for ns in namespaces)
@@ -228,11 +236,55 @@ class PlanCache:
         self._insert(self._moe_execs, key, fn)
         return fn
 
+    def dense_collective(
+        self,
+        collective: str,
+        counts: np.ndarray,
+        topo: Topology,
+        variant: str = "auto",
+        value_bytes: int = 8,
+        params: MachineParams = LASSEN,
+    ) -> Tuple[Any, Any]:
+        """Cached ``dense.select_dense``: returns ``(DensePlan,
+        DenseSelection)``; a hit skips building and scoring the candidate
+        round schedules."""
+        from .dense import dense_cache_key, select_dense
+
+        key = dense_cache_key(collective, counts, topo, variant,
+                              value_bytes, params)
+        entry = self._lookup(self._dense_plans, key, "dense_plan")
+        if entry is not None:
+            self.init_seconds_saved += entry[1]
+            return entry[0]
+        t0 = now()
+        plan, sel = select_dense(collective, counts, topo, variant,
+                                 value_bytes, params)
+        secs = now() - t0
+        self.init_seconds_spent += secs
+        self._insert(self._dense_plans, key, ((plan, sel), secs))
+        return plan, sel
+
+    def dense_executor(self, plan, device=None) -> Callable:
+        """Cached ``dense.bind_dense`` on ``device`` (default ``cuda``),
+        keyed on the plan fingerprint and the device."""
+        from .dense import bind_dense
+
+        device = resolve_device(device)
+        key = (plan.fingerprint, str(device))
+        fn = self._lookup(self._dense_execs, key, "dense_executor")
+        if fn is not None:
+            return fn
+        fn = bind_dense(plan, device)
+        self._insert(self._dense_execs, key, fn)
+        return fn
+
     def stats(self) -> Dict[str, Any]:
         """Flat hit/miss counters, per-namespace breakdown, init seconds."""
         sizes = {"collective": len(self._colls), "executor": len(self._execs),
                  "moe_plan": len(self._moe_plans),
-                 "moe_executor": len(self._moe_execs)}
+                 "moe_executor": len(self._moe_execs),
+                 "dense_plan": len(self._dense_plans),
+                 "dense_executor": len(self._dense_execs)}
         return {
             "hits": self.hits,
             "misses": self.misses,
@@ -253,6 +305,8 @@ class PlanCache:
         self._execs.clear()
         self._moe_plans.clear()
         self._moe_execs.clear()
+        self._dense_plans.clear()
+        self._dense_execs.clear()
 
 
 _DEFAULT_CACHE: "PlanCache | None" = None

@@ -1,12 +1,21 @@
-"""Push-side sparse dynamic data exchange: the routing pattern of MoE dispatch.
+"""Sparse dynamic data exchange: partner discovery for irregular patterns.
 
-Ported from ``repro.core.dynexchange`` (``DiscoveryStats``,
-``SparseDynamicExchange.push_pattern``; the pull-side ``discover`` and the
-payload ``push`` are still to port, ROADMAP Queue 1 item 4).  Every rank
-contributes a length-``P`` vector of per-destination counts; one
-allreduce(sum) of the ``P x P`` matrix tells each rank who will push to it,
-and the result is a :class:`~repro_torch.core.plan.CommPattern` that the
-Section-5 selector scores.  Host-side numpy over simulated ranks.
+A rank knows which remote values it must fetch, or where its own rows must
+go, but the other side does not know who will contact it ("A More Scalable
+Sparse Dynamic Data Exchange", arXiv 2308.13869).  Every rank contributes a
+length-``P`` vector of per-partner counts; one allreduce(sum) of the
+``P x P`` matrix tells each rank who will contact it and with how much, and
+the result is a :class:`~repro_torch.core.plan.CommPattern` that the
+Section-5 selector scores and ``PlanCache.collective`` turns into a
+persistent exchange.
+
+* :meth:`SparseDynamicExchange.discover`: pull; each rank names the global
+  indices it needs (the distributed Galerkin product's remote rows,
+  ``sparse.spgemm.gather_remote_rows``).
+* :meth:`SparseDynamicExchange.push_pattern` / :meth:`push`: push; rows
+  with known destinations (the AMG setup's transposes, MoE token routing).
+
+Host-side numpy over simulated ranks, ported from ``repro.core.dynexchange``.
 """
 from __future__ import annotations
 
@@ -56,6 +65,25 @@ class SparseDynamicExchange:
     """Allreduce-on-counts partner discovery (arXiv 2308.13869)."""
 
     @staticmethod
+    def discover(
+        needs: Sequence[np.ndarray], proc_offsets: np.ndarray
+    ) -> Tuple[CommPattern, DiscoveryStats]:
+        """Pull side: ``needs[p]`` are the global indices rank ``p`` must
+        fetch; ownership is contiguous by ``proc_offsets``.  Rank ``p``
+        forms its count row ``counts[p, q] = |{g in needs[p] : owner(g) =
+        q}|``, the rows are allreduced, and owners read their column."""
+        proc_offsets = np.asarray(proc_offsets, dtype=np.int64)
+        n_procs = len(proc_offsets) - 1
+        needs = [np.asarray(n, dtype=np.int64) for n in needs]
+        counts = np.zeros((n_procs, n_procs), dtype=np.int64)
+        for p, need in enumerate(needs):
+            if len(need):
+                owners = np.searchsorted(proc_offsets, need, side="right") - 1
+                np.add.at(counts[p], owners, 1)
+        pattern = CommPattern.from_block_partition(needs, proc_offsets)
+        return pattern, _stats_from_counts(counts)
+
+    @staticmethod
     def push_pattern(
         dest: Sequence[np.ndarray],
         local_ids: Optional[Sequence[np.ndarray]] = None,
@@ -97,3 +125,53 @@ class SparseDynamicExchange:
             )
         pattern = CommPattern.from_block_partition(needs, offsets)
         return pattern, _stats_from_counts(counts)
+
+    @staticmethod
+    def push(
+        dest: Sequence[np.ndarray], payload: Sequence[np.ndarray]
+    ) -> Tuple[List[np.ndarray], List[np.ndarray], DiscoveryStats]:
+        """Push side with payload: row ``i`` of ``payload[p]`` (``[k, ...]``)
+        is bound for rank ``dest[p][i]``.  Returns ``(received, sources,
+        stats)``: ``received[q]`` stacks the rows delivered to ``q`` in
+        ascending source rank, original order within a source, and
+        ``sources[q]`` their source ranks."""
+        n_procs = len(dest)
+        dest = [np.asarray(d, dtype=np.int64) for d in dest]
+        payload = [np.asarray(v) for v in payload]
+        counts = np.zeros((n_procs, n_procs), dtype=np.int64)
+        for p, d in enumerate(dest):
+            if len(d):
+                np.add.at(counts[p], d, 1)
+        trailing = next(
+            (v.shape[1:] for v in payload if v.ndim > 1), ()
+        )
+        # an empty receiver's buffer carries the senders' dtype: the first
+        # non-empty payload's, else any payload's, else float64
+        dtype = next(
+            (v.dtype for v in payload if len(v)),
+            next((v.dtype for v in payload), np.float64),
+        )
+        # one stable sort per sender groups its rows by destination; each
+        # receiver then concatenates in ascending source rank
+        parts: List[List[np.ndarray]] = [[] for _ in range(n_procs)]
+        srcs: List[List[np.ndarray]] = [[] for _ in range(n_procs)]
+        for p, d in enumerate(dest):
+            if not len(d):
+                continue
+            order = np.argsort(d, kind="stable")
+            sorted_d = d[order]
+            bounds = np.flatnonzero(np.diff(sorted_d)) + 1
+            for chunk in np.split(order, bounds):
+                q = int(d[chunk[0]])
+                parts[q].append(payload[p][chunk])
+                srcs[q].append(np.full(len(chunk), p, dtype=np.int64))
+        received: List[np.ndarray] = []
+        sources: List[np.ndarray] = []
+        for q in range(n_procs):
+            if parts[q]:
+                received.append(np.concatenate(parts[q]))
+                sources.append(np.concatenate(srcs[q]))
+            else:
+                received.append(np.zeros((0,) + trailing, dtype=dtype))
+                sources.append(np.zeros(0, dtype=np.int64))
+        return received, sources, _stats_from_counts(counts)

@@ -5,8 +5,9 @@
 //   K5 gather_rows   (_pack_kernel)     -> gather_rows_kernel
 //   K6 combine_rows  (_combine_kernel)  -> combine_lanes_kernel
 //
-// K5: out[i, :] = x[idx[i], :].  The caller appends a zero row to x and
-// points pad indices at it (the reference's "zero row N-1").  The MoE layer
+// K5: out[i, :] = x[idx[i], :], and a zero row for an index outside
+// [0, N) (the reference points pad indices at a zero row N-1 that its
+// caller appends; the port's callers still append it).  The MoE layer
 // stacks its EP lanes on one card and offsets each lane's indices into the
 // lane-stacked row table, so one launch packs every lane.
 // K6 over G stacked lanes: buf [G, R, D], idx and w [G, N, K],
@@ -48,9 +49,8 @@
 // the prefill call 0.0120-0.0122 ms against its 0.0098 ms bound, 80-82 %
 // (the kernel before it 0.0131-0.0132).
 //
-// Indices are not range-checked on the card: the MoE packing produces them
-// in [0, R], and K5's plain version raises on an index out of range, K6's
-// on a negative one.
+// Both kernels follow one index rule, as their plain versions do: an index
+// outside [0, N) (K5) or [0, R) (K6) reads a zero row and loads nothing.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -69,15 +69,25 @@ constexpr int kCombineBlocksPerSm = 12;
 
 // K5 over raw rows: V is the unit each thread copies (uint4, uint32_t,
 // uint16_t or uint8_t), row_units the row's length in units.
+// An index outside [0, N) writes a zero row and reads nothing of x.
 template <typename V>
 __global__ void gather_rows_kernel(const V* __restrict__ x,
                                    const int* __restrict__ idx,
-                                   V* __restrict__ out, int row_units) {
+                                   V* __restrict__ out, int N,
+                                   int row_units) {
   const long long i = blockIdx.x;
-  const long long src = (long long)__ldg(idx + i) * row_units;
+  const int r = __ldg(idx + i);
   const long long dst = i * row_units;
-  for (int u = threadIdx.x; u < row_units; u += blockDim.x) {
-    out[dst + u] = __ldg(x + src + u);
+  if ((unsigned)r < (unsigned)N) {
+    const long long src = (long long)r * row_units;
+    for (int u = threadIdx.x; u < row_units; u += blockDim.x) {
+      out[dst + u] = __ldg(x + src + u);
+    }
+  } else {
+    const V zero{};
+    for (int u = threadIdx.x; u < row_units; u += blockDim.x) {
+      out[dst + u] = zero;
+    }
   }
 }
 
@@ -180,11 +190,11 @@ combine_lanes_kernel(const T* __restrict__ buf, const int* __restrict__ idx,
 }
 
 template <typename V>
-int launch_gather(const void* x, const int* idx, void* out, int M,
+int launch_gather(const void* x, const int* idx, void* out, int M, int N,
                   int row_bytes, cudaStream_t stream) {
   const int units = row_bytes / (int)sizeof(V);
   gather_rows_kernel<V><<<M, kThreads, 0, stream>>>(
-      static_cast<const V*>(x), idx, static_cast<V*>(out), units);
+      static_cast<const V*>(x), idx, static_cast<V*>(out), N, units);
   return (int)cudaGetLastError();
 }
 
@@ -224,16 +234,17 @@ const char* repro_cuda_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// K5.  unit: bytes each thread copies per step (16, 4, 2 or 1); the wrapper
-// picks the widest that divides row_bytes and both pointers' alignment.
-int repro_gather_rows(const void* x, const int* idx, void* out, int M,
+// K5: x [N, row_bytes], idx [M] -> out [M, row_bytes].  unit: bytes each
+// thread copies per step (16, 4, 2 or 1); the wrapper picks the widest
+// that divides row_bytes and both pointers' alignment.
+int repro_gather_rows(const void* x, const int* idx, void* out, int M, int N,
                       int row_bytes, int unit, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (unit) {
-    case 16: return launch_gather<uint4>(x, idx, out, M, row_bytes, s);
-    case 4: return launch_gather<uint32_t>(x, idx, out, M, row_bytes, s);
-    case 2: return launch_gather<uint16_t>(x, idx, out, M, row_bytes, s);
-    case 1: return launch_gather<uint8_t>(x, idx, out, M, row_bytes, s);
+    case 16: return launch_gather<uint4>(x, idx, out, M, N, row_bytes, s);
+    case 4: return launch_gather<uint32_t>(x, idx, out, M, N, row_bytes, s);
+    case 2: return launch_gather<uint16_t>(x, idx, out, M, N, row_bytes, s);
+    case 1: return launch_gather<uint8_t>(x, idx, out, M, N, row_bytes, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

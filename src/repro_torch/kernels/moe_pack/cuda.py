@@ -16,7 +16,7 @@ import torch
 from ..build import CudaLibrary, I, P, check_cuda
 
 LIBRARY = CudaLibrary("moe_pack.cu", {
-    "repro_gather_rows": [P, P, P, I, I, I],
+    "repro_gather_rows": [P, P, P, I, I, I, I],
     "repro_combine_lanes_bf16": [P, P, P, P, I, I, I, I, I, I],
     "repro_combine_lanes_f32": [P, P, P, P, I, I, I, I, I, I],
 })
@@ -35,16 +35,17 @@ def _unit(nbytes: int, *tensors: torch.Tensor) -> int:
 
 
 def gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """K5 on the card: x [N, D] (any dtype), idx [M] int32 -> [M, D]."""
+    """K5 on the card: x [N, D] (any dtype), idx [M] int32 -> [M, D]; an
+    index outside [0, N) gives a zero row and reads nothing of x."""
     device = check_cuda("gather_rows", x=x, idx=idx)
     if idx.dtype != torch.int32:
         raise TypeError(f"gather_rows: idx is {idx.dtype}, expected int32")
-    M, D = idx.shape[0], x.shape[1]
+    (N, D), M = x.shape, idx.shape[0]
     out = torch.empty((M, D), dtype=x.dtype, device=device)
     if out.numel():
         row_bytes = D * x.element_size()
         LIBRARY.launch("gather_rows", "repro_gather_rows", device,
-                       x.data_ptr(), idx.data_ptr(), out.data_ptr(), M,
+                       x.data_ptr(), idx.data_ptr(), out.data_ptr(), M, N,
                        row_bytes, _unit(row_bytes, x, out))
     return out
 

@@ -40,7 +40,8 @@ Entry points:
 * :func:`select_spmv_overlap`: cost-model overlap on/off choice
   (:class:`OverlapSelection`), from figures the caller supplies;
 * :func:`row_block_bucket_map`: per-row-block live-bucket lists for the
-  bucket-skipping kernel (shared by the fused and overlapped schedules).
+  bucket-skipping kernel (shared by the fused and overlapped schedules);
+* :func:`distributed_spmv`: the one-shot product of a global numpy vector.
 """
 from __future__ import annotations
 
@@ -54,9 +55,11 @@ import torch.nn.functional as F
 
 from .. import resolve_device
 from ..core.costmodel import (
+    LASSEN,
     exposed_exchange_seconds,
     hidden_fraction,
     overlap_split_overhead,
+    plan_time,
     spmv_compute_time,
 )
 from ..kernels.spmv_ell import DEFAULT_BLOCK_COLS, DEFAULT_BLOCK_ROWS
@@ -721,3 +724,54 @@ def _make_distributed_spmv_blocked(
     spmv_fn.kernels = ("spmv_ell_blocked_skip" if skip is not None
                        else "spmv_ell_blocked",)
     return spmv_fn
+
+
+def distributed_spmv(
+    part: PartitionedCSR,
+    coll,
+    x: np.ndarray,
+    dtype=np.float64,
+    variant: str = "flat",
+    block_cols: int = DEFAULT_BLOCK_COLS,
+    overlap: str = "off",
+    *,
+    vmem_limit_bytes: Optional[int] = None,
+    params=LASSEN,
+    hbm_bw: Optional[float] = None,
+    vpu_flops: Optional[float] = None,
+    launch_s: Optional[float] = None,
+    device=None,
+) -> np.ndarray:
+    """One-shot distributed SpMV of a global numpy vector on ``device``
+    (default ``cuda``), through the collective ``coll``
+    (a ``NeighborAlltoallV`` for ``part.pattern``).
+
+    ``variant`` is ``"flat"``, ``"blocked"`` or ``"auto"`` (modeled
+    footprint against ``vmem_limit_bytes``, which it then needs);
+    ``overlap`` is ``"on"``, ``"off"`` or ``"auto"`` (the split schedule
+    when the exchange time modeled under ``params`` hides more than the
+    split costs, at the device figures ``hbm_bw``, ``vpu_flops`` and
+    ``launch_s``, which it then needs).  For repeated products build the
+    function once with :func:`make_distributed_spmv`.
+    """
+    device = resolve_device(device)
+    sel = select_spmv_kernel(part, variant=variant, block_cols=block_cols,
+                             vmem_limit_bytes=vmem_limit_bytes)
+    ell = partitioned_to_device(part, sel, dtype, block_cols)
+    exchange = coll.bind(device) if ell.ghost_pad else None
+    if overlap == "auto":
+        osel = select_spmv_overlap(
+            part, plan_time(coll.plan, params), mode="auto",
+            hbm_bw=hbm_bw, vpu_flops=vpu_flops, launch_s=launch_s,
+        )
+        ov = osel.mode == "on"
+    else:
+        if overlap not in ("on", "off"):
+            raise ValueError(f"unknown overlap mode {overlap!r}")
+        ov = overlap == "on" and ell.ghost_pad > 0
+    fn = make_distributed_spmv(ell, exchange, overlap=ov, device=device)
+    xg = torch.as_tensor(
+        pack_vector(part.col_offsets, ell.in_pad, x.astype(dtype)),
+        device=device,
+    )
+    return unpack_vector(part.offsets, fn(xg).cpu().numpy())

@@ -8,7 +8,9 @@ of the adds may differ, hence 1e-6.  K6's lane form (``combine_lanes``:
 buf [G, R, D], an index >= R adds zero) is held against ``repro``'s kernel
 on the table ``repro``'s MoE layer feeds it: each lane's rows with a zero
 row appended, the lanes concatenated, each lane's indices offset into its
-own and its sentinels pointed at its zero row.
+own and its sentinels pointed at its zero row.  All three ops read an index
+outside the row table (negative or past the end) as a zero row and raise
+for none.
 """
 import numpy as np
 import pytest
@@ -103,8 +105,47 @@ def test_plain_versions_index_like_the_ops():
     cidx = idx.reshape(6, 2)
     w = torch.rand(6, 2, generator=torch.Generator().manual_seed(0))
     assert torch.equal(combine(x, cidx, w), combine_rows_ref(x, cidx, w))
-    with pytest.raises(IndexError):
-        pack(x, torch.tensor([11]))
+    assert torch.equal(pack(x, torch.tensor([11])), torch.zeros(1, 8))
+
+
+OUT_OF_RANGE = [-1, 0, 5]     # -1, and R + 0 / R + 5 past the last row
+
+
+@pytest.mark.parametrize("idx_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("past", OUT_OF_RANGE)
+def test_pack_reads_zero_outside_the_table(past, idx_dtype):
+    """An index at -1, R or R + 5 gives a zero row, the others their row,
+    even when the row past the table is NaN."""
+    base = torch.randn(7 + 6, 8, generator=torch.Generator().manual_seed(2))
+    base[7:] = float("nan")
+    x = base[:7]
+    bad = -1 if past < 0 else 7 + past
+    idx = torch.tensor([3, bad, 0, bad, 6], dtype=idx_dtype)
+    out = pack(x, idx)
+    assert torch.equal(out, gather_rows_ref(x, idx))
+    assert not out[[1, 3]].any() and not out[[1, 3]].signbit().any()
+    assert torch.equal(out[[0, 2, 4]], x[[3, 0, 6]])
+
+
+@pytest.mark.parametrize("past", OUT_OF_RANGE)
+def test_combine_adds_zero_outside_the_table(past):
+    """``combine`` and ``combine_lanes``: an index at -1, R or R + 5 adds
+    exactly zero whatever its weight, on a table whose next row is NaN."""
+    gen = torch.Generator().manual_seed(3)
+    base = torch.randn(2 * 5 + 6, 4, generator=gen)
+    base[10:] = float("nan")
+    bad = -1 if past < 0 else 5 + past
+    idx = torch.tensor([[[1, bad, 4]], [[bad, bad, 0]]])
+    w = torch.rand(2, 1, 3, generator=gen)
+    lanes = base[:10].view(2, 5, 4)
+    out = combine_lanes(lanes, idx, w)
+    assert bool(torch.isfinite(out).all())
+    assert torch.equal(out, combine_lanes_ref(lanes, idx, w))
+    assert torch.equal(out[1, 0], (w[1, 0, 2] * lanes[1, 0]))
+    flat = combine(base[:5], idx[0], w[0])
+    assert torch.equal(flat, combine_rows_ref(base[:5], idx[0], w[0]))
+    want = w[0, 0, 0] * lanes[0, 1] + w[0, 0, 2] * lanes[0, 4]
+    assert torch.equal(flat[0], want)
 
 
 X = torch.zeros(9, 4)
@@ -236,9 +277,11 @@ def test_combine_lanes_reads_no_sentinel_row():
 
 
 def test_combine_lanes_negative_index_raises():
-    with pytest.raises(IndexError, match="negative"):
-        combine_lanes(torch.zeros(1, 4, 8), torch.tensor([[[1, -1]]]),
-                      torch.ones(1, 1, 2))
+    """No longer raises: a negative index adds exactly zero, as the kernel
+    reads it (the name is kept from when the plain version raised)."""
+    buf = torch.arange(32, dtype=torch.float32).reshape(1, 4, 8)
+    out = combine_lanes(buf, torch.tensor([[[1, -1]]]), torch.ones(1, 1, 2))
+    assert torch.equal(out[0, 0], buf[0, 1])
 
 
 def test_combine_lanes_dispatch_is_by_device():

@@ -36,6 +36,10 @@ def _chip_smoke():
 
 
 def test_chip_smoke_phases_run_on_cpu():
+    """Every AMG phase, the partitioned setup and solve (levels against the
+    host hierarchy, the coarse allgatherv in every mode, the warm start)
+    and the dense executor (every collective x variant x count set bitwise
+    equal to ``execute_numpy``) included."""
     chip_smoke = _chip_smoke()
     res = chip_smoke.run("cpu", rows=4096, block_cols=16, v_cycles=2)
     assert set(res["kernels"]) == {
@@ -50,6 +54,20 @@ def test_chip_smoke_phases_run_on_cpu():
     assert len(res["planted"]) == 2        # both planted faults refused
     for errs in res["planted"].values():
         assert all(e > chip_smoke.TOL[d] for d, e in errs.items())
+    res.update(chip_smoke.partitioned_run(res, coarse_max_iters=4,
+                                          dense_n=4096))
+    part = res["partitioned"]
+    assert part["max_rel_dev"] <= chip_smoke.HIST_RTOL
+    assert all(n == 0 for n in part["launches"].values())   # no card
+    assert set(part["coarse"]) == {"off", *chip_smoke.COARSE_GATHERS}
+    for cg in chip_smoke.COARSE_GATHERS:
+        rec = part["coarse"][cg]
+        assert rec["iters"] <= part["coarse"]["off"]["iters"] + 2
+        assert rec["rel"] < 1e-8
+    assert part["coarse"]["ring"]["chosen"] == "ring"
+    assert len(res["dense"]) == 3 * 7      # count sets x (3 + 2 + 2) variants
+    assert {r["counts"] for r in res["dense"]} == {"coarsest", "even",
+                                                   "ragged"}
 
 
 @pytest.mark.parametrize("name", ["spmv_ell_blocked",

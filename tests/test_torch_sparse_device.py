@@ -240,3 +240,31 @@ def test_compute_and_overlap_terms_equal(nnz, rows, x_len, value_bytes):
                     tx, tl, rows=rows, value_bytes=value_bytes, mode=mode,
                     has_ghost=has_ghost)
                 assert dataclasses.asdict(got) == dataclasses.asdict(want)
+
+
+@pytest.mark.parametrize("overlap", ["off", "on", "auto"])
+@pytest.mark.parametrize("variant", ["flat", "blocked", "auto"])
+def test_one_shot_distributed_spmv_matches_host_product(parts, variant,
+                                                        overlap):
+    """``distributed_spmv``: the one-shot product of a global vector, with
+    the reference's figures passed for ``auto``."""
+    _, pp, A = parts
+    coll = NeighborAlltoallV.init(pp.pattern, Topology(4, 2), "auto")
+    x = np.random.default_rng(5).normal(size=A.ncols)
+    y = dev.distributed_spmv(pp, coll, x, variant=variant, block_cols=16,
+                             overlap=overlap, vmem_limit_bytes=REF_LIMIT,
+                             params=ref_cost.TPU_V5E, device="cpu",
+                             **REF_FIGURES)
+    np.testing.assert_allclose(y, A.matvec(x), rtol=1e-12, atol=1e-12)
+
+
+def test_one_shot_distributed_spmv_needs_figures_for_auto(parts):
+    _, pp, A = parts
+    coll = NeighborAlltoallV.init(pp.pattern, Topology(4, 2), "standard")
+    x = np.zeros(A.ncols)
+    with pytest.raises(ValueError, match="vmem_limit_bytes"):
+        dev.distributed_spmv(pp, coll, x, variant="auto", device="cpu")
+    with pytest.raises(ValueError, match="hbm_bw"):
+        dev.distributed_spmv(pp, coll, x, overlap="auto", device="cpu")
+    with pytest.raises(ValueError, match="overlap mode"):
+        dev.distributed_spmv(pp, coll, x, overlap="maybe", device="cpu")
