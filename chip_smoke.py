@@ -67,11 +67,33 @@ any phase fails:
    within 1e-8) and resumes a solve from its third iterate (``x0``);
    then runs the dense executor (``bind_dense``) for every collective x
    variant on three count sets, bitwise equal to ``execute_numpy``, timed;
-8. checks that each path launched each of its kernels (the AMG solves
+8. calibrate, last (no profiler): times the rate probes
+   (``profile.probe_plans`` on ``Topology(8, 4)``, 16,384 values a
+   message, every strategy), the paper problem's exchanges
+   (``measure_exchange_seconds``), its SpMVs flat/off and blocked/off
+   (``measure_spmv_seconds``: K1, K2 and K4 must launch; impure, kept out
+   of the fit), the dense plans on the coarsest counts
+   (``measure_dense_seconds``) and the set-up's ``gather_A`` /
+   ``gather_P`` patterns into one ``TraceRecorder``; fits
+   ``MachineParams`` (``fit_trace`` under ``LASSEN``; trace and
+   ``fitted_params.json`` saved to ``chiprun_out/calibrate/`` before the
+   reference's gate: converged, finite, ``rel_rmse <= 10``); holds the fit
+   to its round trip (a trace synthesized at the fit fits back within 1e-6
+   on every rate the probes excite there) and to a planted fault (every
+   time x 10 must fit to scaled rates); prints the pure samples' seconds
+   against their rounds; fits the probes at 65,536 values apart;
+   prints the selections under ``LASSEN`` against the fit (each level's
+   strategy, the MoE modes of the served geometry, ``coarse_gather``) and
+   the flips; and solves the paper problem with every ``auto`` under the
+   fit and the card's own figures (:func:`card_figures`) against the host
+   history, each level's choices beside ``LASSEN``'s and beside the faster
+   measured SpMV;
+9. checks that each path launched each of its kernels (the AMG solves
    the launches per V-cycle of ``VCYCLE_LAUNCHES``, the partitioned solve
-   K2 and K4), and prints one JSON
+   K2 and K4, the calibrate phase K1, K2 and K4), and prints one JSON
    line with every kernel's record: calls (``launches``) and
-   ``cuda_launches`` on the main path, ``ms`` by CUDA events,
+   ``cuda_launches`` on the main path (K1-K4 also
+   ``partitioned_launches`` and ``calibrate_launches``), ``ms`` by CUDA events,
    ``device_ms`` and ``host_us`` (:func:`device_times`), bound, plain and
    library times.
 
@@ -787,8 +809,8 @@ def profile_solve(dh, b, wall_ms: float) -> dict:
 def solve_phase(h, b, device, block_cols: int, on_card: bool,
                 v_cycles: int):
     """Every variant x overlap solve against the host history.  Returns the
-    results of each solve and, per configuration, the kernel calls of one
-    recorded V-cycle."""
+    results of each solve, per configuration the kernel calls of one
+    recorded V-cycle, and the host solver's history."""
     import numpy as np
     import torch
 
@@ -849,7 +871,7 @@ def solve_phase(h, b, device, block_cols: int, on_card: bool,
                 (variant, overlap), {})):
             dh.solve(b, tol=0.0, max_iters=1)
         del dh
-    return per_solve, recorded
+    return per_solve, recorded, host_hist
 
 
 # ------------------------------------------------- partitioned phase
@@ -983,7 +1005,7 @@ def partitioned_phase(h, b, host_setup_s: float, device, block_cols: int,
         fail(f"partitioned solve: history {hist} vs host {host_hist}")
     out = dict(setup_s=setup_s, host_setup_s=host_setup_s,
                ms_per_vcycle=ms, max_rel_dev=dev, launches=launches,
-               n_levels=info.n_levels)
+               n_levels=info.n_levels, setup_records=info.records)
     if on_card:
         prof = profile_solve(dh, b, ms)
         out.update(prof)
@@ -1118,6 +1140,438 @@ def dense_phase(coarse_counts, device, on_card: bool,
                     f"execute_numpy, {ms:.4f} ms")
                 del x, got
     return rows
+
+
+# ------------------------------------------------------- calibrate phase
+PROBE_N_PER = 16384                  # values a probe message: the reference
+#                                      test's probe size
+PROBE_N_PER_FINE = 65536             # the fine level's values a rank: a
+#                                      second probe set, fitted apart
+PROBE_STRATEGIES = ("standard", "partial", "full")
+MEASURE_ITERS, MEASURE_WARMUP = 20, 3
+RATE_FIELDS = ("alpha_intra", "beta_intra", "alpha_inter", "beta_inter",
+               "region_injection_bw")
+FIT_RMSE_GATE = 10.0                 # the reference's calibration gate
+ORACLE_RTOL, ORACLE_RMSE = 1e-6, 1e-9
+EXCITE_STEP = 1e-3                   # a rate this much dearer must slow a
+#                                      probe for the probes to excite it
+PLANTED_SCALE = 10.0                 # the planted fault: every time x 10
+DECODE_TOKENS = 4                    # the serve phase's 4 slots
+PREFILL_TOKENS = 4 * 512             # its worst-case prefill plan
+
+
+def time_pattern(tracer, label: str, cache, pattern, topo, device,
+                 strategy: str, params):
+    """Time ``pattern``'s exchange (``PlanCache.executor``,
+    ``time_executor`` in float64) and record it in ``tracer`` as a pure
+    exchange; returns the sample."""
+    import numpy as np
+
+    from repro_torch.core import time_executor
+
+    coll = cache.collective(pattern, topo, strategy, 8, params)
+    fn = cache.executor(pattern, topo, device, strategy, 8, params)
+    secs = time_executor(fn, topo.n_procs, int(pattern.n_local.max()),
+                         np.float64, MEASURE_ITERS, MEASURE_WARMUP,
+                         device=device)
+    return tracer.record_plan(coll.plan, secs, label=label,
+                              pure_exchange=True)
+
+
+def probe_trace(cache, topo, device, n_per: int):
+    """Every rate probe (``rate_probe_patterns`` x ``PROBE_STRATEGIES``)
+    timed into one trace of pure exchanges."""
+    from repro_torch.core.costmodel import LASSEN
+    from repro_torch.profile import TraceRecorder, rate_probe_patterns
+
+    tracer = TraceRecorder()
+    for label, pattern in rate_probe_patterns(topo, n_per=n_per):
+        for strategy in PROBE_STRATEGIES:
+            time_pattern(tracer, f"probe/{n_per}/{label}/{strategy}", cache,
+                         pattern, topo, device, strategy, LASSEN)
+    return tracer
+
+
+def fallbacks(params, ref) -> list:
+    """The rates a fit took from ``ref`` (the samples did not excite them,
+    or they fit to a zero rate): equal to the reference's bit for bit."""
+    return [f for f in RATE_FIELDS
+            if getattr(params, f) == getattr(ref, f)]
+
+
+def log_fit(result, label: str) -> None:
+    ref = result.ref
+    log(f"{label}:\n{result.table()}")
+    for f in RATE_FIELDS:
+        a, b = float(getattr(ref, f)), float(getattr(result.params, f))
+        log(f"  rate {f:20s} {ref.name} {a:.6g} fitted {b:.6g} "
+            f"ratio {b / a:.6g}")
+    log(f"  taken from {ref.name} (not excited, or fit to a zero rate): "
+        f"{fallbacks(result.params, ref) or 'none'}")
+
+
+def rounds_fit(tracer) -> dict:
+    """Seconds of the trace's pure samples against their wire rounds (the
+    ``color_rounds`` of every step), by least squares: on stacked ranks a
+    round is a fixed run of eager ops, whatever it carries."""
+    import numpy as np
+
+    pure = [smp for smp in tracer.samples if smp.pure_exchange]
+    rounds = np.array([sum(st.rounds for st in smp.steps) for smp in pure],
+                      dtype=float)
+    secs = np.array([smp.seconds for smp in pure])
+    slope, fixed = np.polyfit(rounds, secs, 1)
+    resid = secs - (slope * rounds + fixed)
+    r2 = 1.0 - float(resid @ resid) / float(((secs - secs.mean()) ** 2).sum())
+    return dict(per_round=float(slope), fixed=float(fixed), r2=r2)
+
+
+def rel_off(got: float, want: float) -> float:
+    """|got - want| / |want|; 0 if both are 0, inf if only ``want`` is."""
+    if want == 0.0:
+        return 0.0 if got == 0.0 else float("inf")
+    return abs(got - want) / abs(want)
+
+
+def probe_excited(plans, params) -> list:
+    """The rates the plans' modeled times depend on at ``params``: making
+    one EXCITE_STEP dearer (its alpha up, its bandwidth down) slows some
+    plan.  A rate that no plan's bottleneck uses there is not identified
+    by those plans: ``synthesize_trace`` promises a fit back only for the
+    rates the plan set excites."""
+    from repro_torch.core import plan_time
+
+    base = [plan_time(p, params) for p in plans]
+    out = []
+    for f in RATE_FIELDS:
+        v = getattr(params, f)
+        dearer = dataclasses.replace(params, **{f: (
+            v * (1.0 + EXCITE_STEP) if f.startswith("alpha")
+            else v / (1.0 + EXCITE_STEP))})
+        if any(plan_time(p, dearer) > t * (1.0 + 1e-9)
+               for p, t in zip(plans, base)):
+            out.append(f)
+    return out
+
+
+def check_fit_oracle(fitted, topo, n_per: int) -> dict:
+    """The round trip at ``fitted``: a trace synthesized from the cost model
+    under ``fitted`` over the probe plans fits back to it, every rate the
+    probes excite there within ORACLE_RTOL and rel_rmse under ORACLE_RMSE,
+    the bar the reference holds its own fit to.  A rate the probes do not
+    excite at ``fitted`` (the injection cap, where the inter latency
+    outweighs it in every probe) is printed, not held: any value of it
+    gives the same probe times."""
+    from repro_torch.core.costmodel import LASSEN
+    from repro_torch.profile import fit_trace, probe_plans, synthesize_trace
+
+    plans = probe_plans(topo, value_bytes=8, strategies=PROBE_STRATEGIES,
+                        n_per=n_per)
+    excited = probe_excited(plans, fitted)
+    back = fit_trace(synthesize_trace(plans, fitted), ref=LASSEN)
+    off = {f: rel_off(getattr(back.params, f), getattr(fitted, f))
+           for f in RATE_FIELDS}
+    worst = max((off[f] for f in excited), default=0.0)
+    log(f"fit oracle: the trace synthesized at the fitted rates fits back "
+        f"within {worst:.3e} on the {len(excited)} rates the probes excite "
+        f"there (bar {ORACLE_RTOL:g}), rel_rmse {back.gof['rel_rmse']:.3e} "
+        f"(bar {ORACLE_RMSE:g}); not excited: "
+        + (", ".join(f"{f} (back {off[f]:.3e} off)" for f in RATE_FIELDS
+                     if f not in excited) or "none"))
+    if not (back.converged and len(excited) and worst <= ORACLE_RTOL
+            and back.gof["rel_rmse"] < ORACLE_RMSE):
+        fail(f"fit oracle: {back.params} from a trace synthesized at "
+             f"{fitted}, gof {back.gof}, excited {excited}")
+    return dict(worst_rel=worst, rel_rmse=back.gof["rel_rmse"],
+                excited=excited)
+
+
+def check_planted_fit(tracer, result) -> dict:
+    """The planted fault: the measured trace with every time x
+    PLANTED_SCALE must fit to scaled rates (alphas x 10, bandwidths / 10)
+    and keep the reference's fallbacks as they are; a fit that returns the
+    measured rates does not read the times."""
+    from repro_torch.profile import TraceRecorder, fit_trace
+
+    planted = TraceRecorder.from_json(tracer.to_json())
+    for smp in planted.samples:
+        smp.seconds *= PLANTED_SCALE
+    got = fit_trace(planted, name="planted", ref=result.ref).params
+    kept = fallbacks(result.params, result.ref)
+    worst = 0.0
+    for f in RATE_FIELDS:
+        want = getattr(result.params, f)
+        if f not in kept:
+            want = (want * PLANTED_SCALE if f.startswith("alpha")
+                    else want / PLANTED_SCALE)
+        worst = max(worst, rel_off(getattr(got, f), want))
+    if worst > ORACLE_RTOL or all(
+            getattr(got, f) == getattr(result.params, f)
+            for f in RATE_FIELDS):
+        fail(f"planted x{PLANTED_SCALE:g} trace fit to {got}; measured fit "
+             f"{result.params} (worst {worst:.3e})")
+    log(f"planted fault (every time x{PLANTED_SCALE:g}): fits to the scaled "
+        f"rates within {worst:.3e}, {len(kept)} fallbacks kept; the fit "
+        "refuses a planted fault")
+    return dict(worst_rel=worst)
+
+
+# K1, K2 and K4: measure_spmv_seconds runs flat/off and blocked/off
+CALIBRATE_KERNELS = ("spmv_ell", "spmv_ell_blocked", "spmv_ell_blocked_skip")
+
+
+def card_figures(amg: dict) -> dict:
+    """The card's own figures for the ``auto`` kernel and overlap rules:
+    the flat kernel's x is read through L2, which the 8 stacked ranks
+    share, so an eighth of this card's L2 is the flat footprint's limit;
+    the data sheet's memory rate and float64 rate; and the median host
+    time of one K1-K4 call in this run's kernel records as the launch
+    cost."""
+    import statistics
+
+    import torch
+
+    props = torch.cuda.get_device_properties(0)
+    return dict(
+        vmem_limit=props.L2_cache_size // N_PROCS,
+        hbm_bw=PEAK_BYTES_PER_S, vpu_flops=PEAK_FLOPS["float64"],
+        launch_s=statistics.median(
+            amg["kernels"][k]["host_us"] for k in REPLACES) * 1e-6)
+
+
+def calibrate_phase(amg: dict, part: dict, figures: dict, out_dir,
+                    n_per: int = PROBE_N_PER,
+                    n_per_fine: int = PROBE_N_PER_FINE,
+                    serve_cfg=None) -> dict:
+    """Measure, fit and re-select, then solve under the fit.
+
+    ``amg`` is :func:`run`'s result (the host hierarchy, vector and
+    history), ``part`` :func:`partitioned_run`'s (the set-up's exchange
+    records and the coarsest counts).  One trace takes the rate probes at
+    ``n_per`` values, the paper problem's exchanges (blocked/off), its
+    SpMVs (flat/off and blocked/off; impure, out of the fit), the dense
+    plans on the coarsest counts and the set-up's ``gather_A`` /
+    ``gather_P`` patterns; ``fit_trace`` under ``LASSEN`` must pass the
+    reference's gate, the round trip and the planted fault.  A second
+    probe set at ``n_per_fine`` is fitted apart.  Then the selections
+    under ``LASSEN`` against the fit (AMG levels, the MoE modes of
+    ``serve_cfg``, default the served DeepSeek, and ``coarse_gather``), and
+    a solve with every ``auto`` under the fit and ``figures``
+    (``vmem_limit``, ``hbm_bw``, ``vpu_flops``, ``launch_s``) against the
+    host history.  The trace and the fitted params go to ``out_dir``
+    before the gate."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.amg import DistributedHierarchy
+    from repro_torch.core import (
+        DENSE_COLLECTIVES,
+        PlanCache,
+        Topology,
+        build_dense_plan,
+        dense_variants,
+        measure_dense_seconds,
+    )
+    from repro_torch.core.costmodel import LASSEN, plan_time
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.models import Mesh, Model, serving
+    from repro_torch.profile import fit_trace, selection_flips
+    from repro_torch.sparse.device import select_spmv_overlap
+
+    host = amg["host"]
+    h, b, device = host["h"], host["b"], host["device"]
+    on_card = device == "cuda"
+    topo = Topology(N_PROCS, PROCS_PER_REGION)
+    cache = PlanCache()
+    before = dict(LAUNCHES)
+    t_phase = time.perf_counter()
+
+    # 1. the rate probes
+    tracer = probe_trace(cache, topo, device, n_per)
+    log(f"calibrate: {len(tracer.samples)} probes at {n_per} values a "
+        f"message timed (time_executor, float64, {MEASURE_ITERS} calls "
+        f"after 1 + {MEASURE_WARMUP})")
+
+    # 2. the paper problem: exchanges, SpMVs, dense plans, set-up gathers
+    lowered = {}
+    for variant in ("flat", "blocked"):
+        t0 = time.perf_counter()
+        lowered[variant] = DistributedHierarchy.setup(
+            h, N_PROCS, procs_per_region=PROCS_PER_REGION, strategy="auto",
+            params=LASSEN, cache=cache, spmv_variant=variant,
+            spmv_overlap="off", spmv_block_cols=host["block_cols"],
+            device=device)
+        log(f"calibrate: {variant}/off lowering "
+            f"{time.perf_counter() - t0:.2f} s")
+    exchange = lowered["blocked"].measure_exchange_seconds(
+        MEASURE_ITERS, MEASURE_WARMUP, tracer=tracer)
+    spmv = {}
+    for variant, dh in lowered.items():
+        start = dict(LAUNCHES)
+        spmv[variant] = dh.measure_spmv_seconds(tracer=tracer)
+        got = {k: LAUNCHES[k] - start[k] for k in REPLACES
+               if LAUNCHES[k] - start[k]}
+        log(f"calibrate: measure_spmv_seconds {variant}/off launched {got}")
+    dense = []
+    counts = np.asarray(part["coarse_counts"], dtype=np.int64)
+    for coll in DENSE_COLLECTIVES:
+        for variant in dense_variants(coll, topo):
+            plan = build_dense_plan(coll, counts, topo, variant)
+            secs = measure_dense_seconds(plan, device, iters=MEASURE_ITERS,
+                                         warmup=MEASURE_WARMUP,
+                                         tracer=tracer)
+            dense.append((plan.strategy, secs))
+    gathers = []
+    for rec in part["partitioned"]["setup_records"]:
+        if rec.phase not in ("gather_A", "gather_P") or rec.pattern is None \
+                or rec.pattern.total_ghosts() == 0:
+            continue
+        smp = time_pattern(tracer, f"setup/L{rec.level}/{rec.phase}", cache,
+                           rec.pattern, topo, device, "auto", LASSEN)
+        gathers.append((f"L{rec.level}/{rec.phase}", smp.strategy,
+                        smp.seconds))
+    where = "" if on_card else " (the CPU: a rehearsal, not a measurement)"
+    log(f"calibrate: per-level ms{where}: level, strategy, exchange "
+        "(blocked/off), SpMV flat/off, SpMV blocked/off")
+    for (k, strat, ex_s), f_row, b_row in zip(exchange, spmv["flat"],
+                                              spmv["blocked"]):
+        log(f"  L{k:<2d} {strat:8s} {ex_s * 1e3:9.4f} {f_row[3] * 1e3:9.4f} "
+            f"{b_row[3] * 1e3:9.4f}")
+    log("calibrate: dense ms on the coarsest counts: " + ", ".join(
+        f"{name} {secs * 1e3:.4f}" for name, secs in dense))
+    log(f"calibrate: {len(gathers)} set-up gathers, ms: " + ", ".join(
+        f"{name} {strat} {secs * 1e3:.4f}" for name, strat, secs in gathers))
+
+    # 3. the fit, saved before its gate (the reference's)
+    result = fit_trace(tracer, name="fitted-h100", ref=LASSEN)
+    summary = tracer.summary()
+    log(f"calibrate: trace {summary}; {result.n_samples} merged pure "
+        "samples enter the fit")
+    log_fit(result, f"fitted on {device} (rates in s and B/s)")
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tracer.save(out_dir / "trace.json")
+    result.save(out_dir / "fitted_params.json")
+    gof = result.gof
+    if not result.converged or not np.isfinite(gof["rel_rmse"]) \
+            or gof["rel_rmse"] > FIT_RMSE_GATE:
+        fail(f"calibration fit did not converge: converged="
+             f"{result.converged} gof={gof}")
+    fitted = result.params
+    per_round = rounds_fit(tracer)
+    log(f"calibrate: the pure samples against their rounds (least squares, "
+        f"not a model the selectors use): {per_round['per_round'] * 1e6:.1f}"
+        f" us a round + {per_round['fixed'] * 1e6:.1f} us, r2 "
+        f"{per_round['r2']:.3f}")
+    fine = fit_trace(probe_trace(cache, topo, device, n_per_fine),
+                     name=f"fitted-h100-probes-{n_per_fine}", ref=LASSEN)
+    log_fit(fine, f"the probes alone at {n_per_fine} values a message, "
+            "fitted apart (not used below)")
+
+    # 4. the fit against its oracle and a planted fault
+    oracle = check_fit_oracle(fitted, topo, n_per)
+    planted = check_planted_fit(tracer, result)
+
+    # 5. re-select under LASSEN and under the fit
+    labeled = [(f"L{lv.index}", lv.A.part.pattern)
+               for lv in lowered["blocked"].levels]
+    flips = selection_flips(labeled, topo, LASSEN, fitted, value_bytes=8)
+    cfg = serve_cfg or configs.get(SERVE_ARCH)
+    moe = {}
+    for label, n_tokens in (("decode", DECODE_TOKENS),
+                            ("prefill", PREFILL_TOKENS)):
+        moe[label] = {}
+        for params in (LASSEN, fitted):
+            model = Model(cfg, mesh=Mesh(*SERVE_MESH), moe_mode="auto",
+                          machine_params=params, device=device)
+            moe[label][params.name] = serving.moe_plan_for_model(
+                model, n_tokens, cache=PlanCache()).mode
+    coarse = {params.name: cache.dense_collective(
+        "allgatherv", counts, topo, "auto", 8, params)[1].chosen
+        for params in (LASSEN, fitted)}
+    n_flips = (sum(r["flip"] == "yes" for r in flips)
+               + sum(len(set(m.values())) > 1 for m in moe.values())
+               + (len(set(coarse.values())) > 1))
+    log(f"calibrate: selections under {LASSEN.name} -> {fitted.name}:")
+    for r in flips:
+        log(f"  {r['label']:4s} {r['shipped']:8s} -> {r['fitted']:8s} "
+            f"flip {r['flip']}")
+    for label, m in moe.items():
+        log(f"  MoE {label} ({cfg.name}, {SERVE_MESH[1]} lanes): "
+            f"{m[LASSEN.name]} -> {m[fitted.name]}")
+    log(f"  coarse_gather auto ({len(counts)} segments): "
+        f"{coarse[LASSEN.name]} -> {coarse[fitted.name]}")
+    log(f"calibrate: {n_flips} flips")
+
+    # 6. every auto under the fit and the card's own figures
+    overlap_figures = {k: figures[k]
+                       for k in ("hbm_bw", "vpu_flops", "launch_s")}
+    t0 = time.perf_counter()
+    dh = DistributedHierarchy.setup(
+        h, N_PROCS, procs_per_region=PROCS_PER_REGION, strategy="auto",
+        params=fitted, cache=cache, spmv_variant="auto",
+        spmv_vmem_limit=figures["vmem_limit"],
+        spmv_block_cols=host["block_cols"], spmv_overlap="auto",
+        spmv_overlap_figures=overlap_figures, coarse_gather="auto",
+        device=device)
+    setup_s = time.perf_counter() - t0
+    v_cycles = host["v_cycles"]
+    dh.solve(b, tol=0.0, max_iters=1)               # warm-up V-cycle
+    start = dict(LAUNCHES)
+    card_sync(on_card)
+    t0 = time.perf_counter()
+    _, hist = dh.solve(b, tol=0.0, max_iters=v_cycles)
+    card_sync(on_card)
+    ms = (time.perf_counter() - t0) * 1e3 / v_cycles
+    host_hist = host["hist"]
+    dev = float(np.max(np.abs(np.asarray(hist) - np.asarray(host_hist))
+                       / np.maximum(np.abs(host_hist), 1e-300)))
+    per_cycle = {k: (LAUNCHES[k] - start[k]) / v_cycles for k in REPLACES
+                 if LAUNCHES[k] - start[k]}
+    log(f"calibrate: solve with every auto under {fitted.name} and "
+        f"{figures}: set-up {setup_s:.2f} s, {ms:.3f} ms per V-cycle, max "
+        f"rel history deviation {dev:.3e}, launches per V-cycle "
+        f"{per_cycle}; {dh.coarse_selection}")
+    if not (len(hist) == len(host_hist) and np.allclose(
+            hist, host_hist, rtol=HIST_RTOL, atol=HIST_ATOL)):
+        fail(f"calibrate solve: history {hist} vs host {host_hist}")
+
+    rows, agree = [], 0
+    log(f"calibrate: per level, A's strategy / kernel / overlap under "
+        f"{LASSEN.name} auto | under the fit and the card's figures | the "
+        "faster measured SpMV (flat/off against blocked/off)")
+    for lv, lv_l, f_row, b_row, flip in zip(
+            dh.levels, lowered["blocked"].levels, spmv["flat"],
+            spmv["blocked"], flips):
+        if lv.A.strategy != flip["fitted"]:
+            fail(f"calibrate L{lv.index}: the solve chose {lv.A.strategy}, "
+                 f"selection_flips {flip['fitted']}")
+        ov_l = select_spmv_overlap(
+            lv_l.A.part, plan_time(lv_l.A.coll.plan, LASSEN), mode="auto",
+            **overlap_figures).mode
+        faster = "flat" if f_row[3] <= b_row[3] else "blocked"
+        agree += lv.A.kernel_variant == faster
+        rows.append(dict(
+            level=lv.index,
+            lassen=(lv_l.A.strategy, lv.A.kernel_variant, ov_l),
+            fitted=(lv.A.strategy, lv.A.kernel_variant, lv.A.overlap_mode),
+            measured_faster=faster))
+        log(f"  L{lv.index:<2d} {lv_l.A.strategy:8s} "
+            f"{lv.A.kernel_variant:7s} {ov_l:3s} | {lv.A.strategy:8s} "
+            f"{lv.A.kernel_variant:7s} {lv.A.overlap_mode:3s} | {faster:7s}"
+            f" (flat {f_row[3] * 1e3:.4f} ms, blocked "
+            f"{b_row[3] * 1e3:.4f} ms)")
+    log(f"calibrate: the flat-vs-blocked rule agrees with the faster "
+        f"measured SpMV on {agree} of {len(rows)} levels")
+    launches = {k: LAUNCHES[k] - before[k] for k in REPLACES}
+    log(f"calibrate phase {time.perf_counter() - t_phase:.1f} s; K1-K4 "
+        f"launches in it {launches}")
+    return dict(params=fitted, gof=gof, fine=fine.params, oracle=oracle,
+                per_round=per_round,
+                planted=planted, flips=flips, moe=moe, coarse=coarse,
+                n_flips=n_flips, exchange=exchange, spmv=spmv, dense=dense,
+                gathers=gathers, levels=rows, rule_agrees=agree,
+                max_rel_dev=dev, ms_per_vcycle=ms, launches=launches,
+                summary=summary)
 
 
 # ------------------------------------------------------------- serve phase
@@ -2434,8 +2888,8 @@ def run(device: str = "cuda", rows: int = 524_288, block_cols: int = 512,
     exchange_phase(h, device, on_card)
     b = np.random.default_rng(0).normal(size=h.levels[0].A.nrows)
     reset_launches()
-    solves, recorded = solve_phase(h, b, device, block_cols, on_card,
-                                   v_cycles)
+    solves, recorded, host_hist = solve_phase(h, b, device, block_cols,
+                                              on_card, v_cycles)
     if on_card:
         torch.cuda.synchronize()
     launches = {k: LAUNCHES[k] for k in REPLACES}
@@ -2445,7 +2899,8 @@ def run(device: str = "cuda", rows: int = 524_288, block_cols: int = 512,
     return dict(kernels=kernels, launches=launches,
                 cuda_launches=cuda_launches, solves=solves, planted=planted,
                 host=dict(h=h, b=b, setup_s=host_setup_s, device=device,
-                          block_cols=block_cols, v_cycles=v_cycles))
+                          block_cols=block_cols, v_cycles=v_cycles,
+                          hist=host_hist))
 
 
 def partitioned_run(amg: dict, coarse_max_iters: int = COARSE_MAX_ITERS,
@@ -2466,7 +2921,8 @@ def partitioned_run(amg: dict, coarse_max_iters: int = COARSE_MAX_ITERS,
     dense = dense_phase(coarse_counts, device, on_card, dense_n)
     log(f"partitioned phase {t1 - t0:.1f} s, dense phase "
         f"{time.perf_counter() - t1:.1f} s")
-    return dict(partitioned=partitioned, dense=dense)
+    return dict(partitioned=partitioned, dense=dense,
+                coarse_counts=coarse_counts)
 
 
 def build_kernels() -> None:
@@ -2531,13 +2987,20 @@ def main() -> int:
     log(f"hybrid phase done at {time.perf_counter() - t_start:.1f} s")
     gc.collect()
     torch.cuda.empty_cache()            # zamba2's weights leave the card
-    part = partitioned_run(res)["partitioned"]["launches"]
+    part_res = partitioned_run(res)
+    part = part_res["partitioned"]["launches"]
     missing = [k for k in ("spmv_ell_blocked", "spmv_ell_blocked_skip")
                if part[k] <= 0]
     if missing:
         fail(f"kernels never launched on the partitioned path: {missing}")
     log(f"partitioned and dense phases done at "
         f"{time.perf_counter() - t_start:.1f} s")
+    cal = calibrate_phase(res, part_res, card_figures(res),
+                          ROOT / "chiprun_out" / "calibrate")["launches"]
+    missing = [k for k in CALIBRATE_KERNELS if cal[k] <= 0]
+    if missing:
+        fail(f"kernels never launched in the calibrate phase: {missing}")
+    log(f"calibrate phase done at {time.perf_counter() - t_start:.1f} s")
     timing = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
               "device_ms", "host_us", "library_device_ms")
     records = []
@@ -2548,6 +3011,7 @@ def main() -> int:
             launches=res["launches"][name],
             cuda_launches=res["cuda_launches"][name],
             partitioned_launches=part[name],
+            calibrate_launches=cal[name],
             max_abs_err=rec["max_abs_err"],
             **{k: rec[k] for k in timing}))
     # K7 runs on both serve paths: its launches are both paths' and its

@@ -1,8 +1,11 @@
 """repro_torch: the PyTorch/CUDA port of ``repro``.
 
-Ported so far: the distributed AMG solve (``sparse``, ``amg``, ``core``),
-MoE serving of DeepSeek-V2-Lite and serving of the Mamba-2 SSM and Zamba2
-hybrid families (``models``, ``serve``, ``configs``).
+Ported so far: the distributed AMG set-up and solve (``sparse``, ``amg``,
+``core``), MoE serving of DeepSeek-V2-Lite and serving of the Mamba-2 SSM
+and Zamba2 hybrid families (``models``, ``serve``, ``configs``), the
+metrics, spans and Perfetto export (``obs``), and measurement and
+calibration (``profile``: the trace recorder and the fit of
+``MachineParams`` to measured exchanges).
 The package mirrors ``repro``'s subpackages and public names, so a parity
 test can call both sides with the same arguments.  It imports ``torch`` and
 ``numpy`` only.  Host planning is numpy; vectors, plans' index arrays, ELL

@@ -27,9 +27,16 @@ rho estimates the residual history tracks the host
 dense allgatherv (``core.dense``) and smooths replicated on a dense
 operator.
 
+Measurement: :meth:`DistributedHierarchy.measure_exchange_seconds` times
+each level's bare exchange (the pure-exchange feed of the rate fit,
+``profile.calibrate.fit_trace``) and
+:meth:`DistributedHierarchy.measure_spmv_seconds` each level's whole SpMV,
+kernels included.
+
 Entry points: ``DistributedHierarchy.setup(...)``,
 ``.setup_partitioned(...)``, ``.solve(b, x0=...)``, ``.describe()``,
-``.selection_table()``, ``.kernel_table()``.
+``.selection_table()``, ``.kernel_table()``,
+``.measure_exchange_seconds(...)``, ``.measure_spmv_seconds(...)``.
 """
 from __future__ import annotations
 
@@ -41,12 +48,13 @@ import torch
 
 from .. import resolve_device
 from ..core.cache import PlanCache, default_plan_cache
+from ..core.collectives import device_sync, time_executor
 from ..core.costmodel import LASSEN, MachineParams, plan_time
 from ..core.dense import DenseSelection, bind_dense
 from ..core.neighborhood import NeighborAlltoallV
 from ..core.plan import Topology
 from ..core.selection import SelectionReport
-from ..obs import default_obs
+from ..obs import default_obs, now
 from ..sparse.device import (
     DEFAULT_BLOCK_COLS,
     DeviceEll,
@@ -367,13 +375,7 @@ class DistributedHierarchy:
 
     # ------------------------------------------------- device programs
     def _bind(self, op: DistOp) -> Callable:
-        exchange = None
-        if op.ell.ghost_pad:
-            exchange = self.cache.executor(
-                op.part.pattern, self.topo, self.device,
-                strategy=self.strategy, value_bytes=self.value_bytes,
-                params=self.params,
-            )
+        exchange = self._bind_exchange_only(op) if op.ell.ghost_pad else None
         return make_distributed_spmv(
             op.ell, exchange, overlap=(op.overlap_mode == "on"),
             device=self.device,
@@ -584,3 +586,95 @@ class DistributedHierarchy:
             lines.append(f"  coarse_gather={self.coarse_gather}: "
                          f"{self.coarse_selection}")
         return "\n".join(lines)
+
+    # -------------------------------------------------------- measurement
+    def measure_exchange_seconds(
+        self, iters: int = 20, warmup: int = 3, tracer=None
+    ) -> List[Tuple[int, str, float]]:
+        """Measured (not modeled) per-level exchange wall time on the
+        device: [(level, strategy, seconds_per_exchange)].
+
+        Times the bound executor of each level's operator halo with the
+        shared protocol (``core.collectives.time_executor``).  Levels
+        without ghost columns have no exchange and report 0.0.  With
+        ``tracer`` (a ``repro_torch.profile.TraceRecorder``) each level's
+        timing is recorded against its plan as a pure exchange; without
+        one, a tracer attached to the enabled obs layer receives the same
+        samples through the span bridge (``pure_exchange`` span
+        attributes).
+        """
+        out = []
+        for lv in self.levels:
+            if not lv.A.ell.ghost_pad:
+                out.append((lv.index, lv.A.strategy, 0.0))
+                continue
+            with _OBS.span("amg/measure_exchange", level=lv.index,
+                           strategy=lv.A.strategy) as sp:
+                secs = time_executor(
+                    self._bind_exchange_only(lv.A),
+                    self.topo.n_procs,
+                    lv.A.ell.in_pad,
+                    dtype=self.dtype,
+                    iters=iters,
+                    warmup=warmup,
+                    device=self.device,
+                )
+                if tracer is not None:
+                    tracer.record_plan(lv.A.coll.plan, secs,
+                                       label=f"amg/L{lv.index}",
+                                       pure_exchange=True)
+                else:
+                    # no explicit tracer: let the obs bridge record it
+                    # (so a tracer passed here is never recorded twice)
+                    sp.set(plan=lv.A.coll.plan, pure_exchange=True,
+                           seconds=secs)
+            out.append((lv.index, lv.A.strategy, secs))
+        return out
+
+    def measure_spmv_seconds(
+        self, iters: int = 10, warmup: int = 2, tracer=None
+    ) -> List[Tuple[int, str, str, float]]:
+        """Measured per-level wall time of the whole bound SpMV (exchange
+        and kernels, under each level's own variant and overlap):
+        [(level, kernel variant, overlap mode, seconds)].
+
+        ``warmup + 1`` calls each wait for the device; the ``iters`` timed
+        calls are issued back to back and waited for once.  With
+        ``tracer``, levels with an exchange are recorded against their
+        plan with ``pure_exchange=False``: these timings include the
+        kernels, so ``merged_rate_samples(pure_only=True)`` keeps them out
+        of the rate fit.
+        """
+        rng = np.random.default_rng(0)
+        out = []
+        for k, lv in enumerate(self.levels):
+            fn = self._Amv[k]
+            x = torch.as_tensor(
+                rng.normal(size=(self.topo.n_procs, lv.A.ell.in_pad))
+                .astype(self.dtype),
+                device=self.device,
+            )
+            for _ in range(warmup + 1):
+                fn(x)
+                device_sync(self.device)
+            t0 = now()
+            for _ in range(iters):
+                fn(x)
+            device_sync(self.device)
+            secs = (now() - t0) / iters
+            if tracer is not None and lv.A.ell.ghost_pad:
+                tracer.record_plan(
+                    lv.A.coll.plan, secs,
+                    label=f"amg/L{lv.index}/spmv", pure_exchange=False,
+                )
+            out.append(
+                (lv.index, lv.A.kernel_variant, lv.A.overlap_mode, secs)
+            )
+        return out
+
+    def _bind_exchange_only(self, op: DistOp) -> Callable:
+        return self.cache.executor(
+            op.part.pattern, self.topo, self.device,
+            strategy=self.strategy, value_bytes=self.value_bytes,
+            params=self.params,
+        )

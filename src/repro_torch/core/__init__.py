@@ -23,13 +23,21 @@ from .plan import (
     padded_wire_volume,
 )
 from .locality import STRATEGIES, build_plan, plan_full, plan_partial, plan_standard
-from .costmodel import LASSEN, MachineParams, plan_time, stats_time
+from .costmodel import (
+    LASSEN,
+    MachineParams,
+    RateSample,
+    fit_machine_params,
+    plan_time,
+    stats_time,
+)
 from .selection import SelectionReport, per_pattern_best, select_plan
 from .collectives import (
     DevicePlan,
     build_device_plan,
     make_executor,
     pack_local_values,
+    time_executor,
     unpack_ghosts,
 )
 from .neighborhood import NeighborAlltoallV
@@ -46,6 +54,7 @@ from .dense import (
     dense_time,
     dense_variants,
     even_counts,
+    measure_dense_seconds,
     pack_dense_input,
     select_dense,
     unpack_dense_output,
@@ -63,13 +72,15 @@ __all__ = [
     "DENSE_COLLECTIVES", "DensePlan", "DenseRound", "DenseSelection",
     "bind_dense", "build_dense_plan", "dense_fingerprint",
     "dense_round_runner", "dense_time", "dense_variants", "even_counts",
-    "pack_dense_input", "select_dense", "unpack_dense_output",
+    "measure_dense_seconds", "pack_dense_input", "select_dense",
+    "unpack_dense_output",
     "CommPattern", "CommPlan", "CommStep", "Message", "PlanStats", "StepStats",
     "Topology", "color_rounds", "padded_wire_volume",
     "STRATEGIES", "build_plan", "plan_full", "plan_partial", "plan_standard",
-    "LASSEN", "MachineParams", "plan_time", "stats_time",
+    "LASSEN", "MachineParams", "RateSample", "fit_machine_params",
+    "plan_time", "stats_time",
     "SelectionReport", "per_pattern_best", "select_plan",
     "DevicePlan", "build_device_plan", "make_executor",
-    "pack_local_values", "unpack_ghosts",
+    "pack_local_values", "time_executor", "unpack_ghosts",
     "NeighborAlltoallV",
 ]

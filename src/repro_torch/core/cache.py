@@ -24,6 +24,10 @@ the dense fingerprint, variant and machine params, and
 counters aggregate the plan namespaces (``collective`` + ``moe_plan`` +
 ``dense_plan``) and the executor namespaces (``executor`` +
 ``moe_executor`` + ``dense_executor``), as ``repro``'s do.
+
+Every lookup also counts into the obs registry (``plan_cache/hits``,
+``plan_cache/misses`` and ``plan_cache/evictions``, labelled by namespace),
+which records only while ``repro_torch.obs`` is enabled.
 """
 from __future__ import annotations
 
@@ -34,10 +38,17 @@ from typing import Any, Callable, Dict, Tuple
 import numpy as np
 
 from .. import resolve_device
-from ..obs import now
+from ..obs import default_obs, now
 from .costmodel import LASSEN, MachineParams
 from .neighborhood import NeighborAlltoallV
 from .plan import CommPattern, Topology
+
+_OBS = default_obs()
+_M_HITS = _OBS.counter("plan_cache/hits", "plan-cache hits by namespace")
+_M_MISSES = _OBS.counter("plan_cache/misses",
+                         "plan-cache misses by namespace")
+_M_EVICTIONS = _OBS.counter("plan_cache/evictions",
+                            "LRU evictions by namespace")
 
 
 def _hash_array(h, name: str, arr: np.ndarray) -> None:
@@ -104,8 +115,19 @@ class PlanCache:
     Bounded: each namespace (``collective``, ``executor``, ``moe_plan``,
     ``moe_executor``, ``dense_plan``, ``dense_executor``) holds at most
     :attr:`max_entries` entries under LRU eviction; evictions are counted.
-    :meth:`stats` reports hits, misses and entries per namespace and the
-    init seconds spent and saved.
+
+    **Stats schema.**  The per-namespace ``_ns_counts`` dicts (filled by
+    :meth:`_lookup`, the single increment point) are the only source of
+    truth; :meth:`snapshot` is the one schema::
+
+        {"counters":   {hits, misses, exec_hits, exec_misses, evictions},
+         "namespaces": {ns: {hits, misses, entries}},   # 6 namespaces
+         "entries": int, "max_entries": int,
+         "init_seconds_spent": float, "init_seconds_saved": float}
+
+    where the flat ``counters`` aggregate the plan namespaces and the
+    executor namespaces.  :meth:`counters` and :meth:`stats` are views of
+    it.
     """
 
     evictions: int = 0
@@ -150,19 +172,25 @@ class PlanCache:
         return self._ns_counts.setdefault(name, {"hits": 0, "misses": 0})
 
     def _lookup(self, store: Dict, key, ns: str):
-        """LRU-aware get: a hit moves the entry to the recent end."""
+        """LRU-aware get: a hit moves the entry to the recent end.
+
+        The single hit/miss increment point: the flat properties and the
+        obs ``plan_cache/*`` counters both hang off it."""
         entry = store.get(key)
         if entry is not None:
             store[key] = store.pop(key)    # dicts iterate in insert order
             self._ns(ns)["hits"] += 1
+            _M_HITS.inc(ns=ns)
         else:
             self._ns(ns)["misses"] += 1
+            _M_MISSES.inc(ns=ns)
         return entry
 
-    def _insert(self, store: Dict, key, value) -> None:
+    def _insert(self, store: Dict, key, value, ns: str) -> None:
         if self.max_entries > 0 and len(store) >= self.max_entries:
             store.pop(next(iter(store)))   # least-recently used
             self.evictions += 1
+            _M_EVICTIONS.inc(ns=ns)
         store[key] = value
 
     def collective(
@@ -183,7 +211,7 @@ class PlanCache:
             pattern, topo, strategy, value_bytes=value_bytes, params=params
         )
         self.init_seconds_spent += coll.init_seconds
-        self._insert(self._colls, key, coll)
+        self._insert(self._colls, key, coll, "collective")
         return coll
 
     def executor(
@@ -208,7 +236,7 @@ class PlanCache:
         if fn is not None:
             return fn
         fn = coll.bind(device)
-        self._insert(self._execs, key, fn)
+        self._insert(self._execs, key, fn, "executor")
         return fn
 
     def moe_plan(self, key: Tuple, build: Callable[[], Any]) -> Any:
@@ -223,7 +251,7 @@ class PlanCache:
         value = build()
         secs = now() - t0
         self.init_seconds_spent += secs
-        self._insert(self._moe_plans, key, (value, secs))
+        self._insert(self._moe_plans, key, (value, secs), "moe_plan")
         return value
 
     def moe_executor(self, key: Tuple,
@@ -233,7 +261,7 @@ class PlanCache:
         if fn is not None:
             return fn
         fn = build()
-        self._insert(self._moe_execs, key, fn)
+        self._insert(self._moe_execs, key, fn, "moe_executor")
         return fn
 
     def dense_collective(
@@ -261,7 +289,8 @@ class PlanCache:
                                  value_bytes, params)
         secs = now() - t0
         self.init_seconds_spent += secs
-        self._insert(self._dense_plans, key, ((plan, sel), secs))
+        self._insert(self._dense_plans, key, ((plan, sel), secs),
+                     "dense_plan")
         return plan, sel
 
     def dense_executor(self, plan, device=None) -> Callable:
@@ -275,22 +304,26 @@ class PlanCache:
         if fn is not None:
             return fn
         fn = bind_dense(plan, device)
-        self._insert(self._dense_execs, key, fn)
+        self._insert(self._dense_execs, key, fn, "dense_executor")
         return fn
 
-    def stats(self) -> Dict[str, Any]:
-        """Flat hit/miss counters, per-namespace breakdown, init seconds."""
+    def snapshot(self) -> Dict[str, Any]:
+        """The one stats schema (see the class docstring): flat aggregates
+        under ``"counters"``, per-namespace breakdowns under
+        ``"namespaces"``."""
         sizes = {"collective": len(self._colls), "executor": len(self._execs),
                  "moe_plan": len(self._moe_plans),
                  "moe_executor": len(self._moe_execs),
                  "dense_plan": len(self._dense_plans),
                  "dense_executor": len(self._dense_execs)}
         return {
-            "hits": self.hits,
-            "misses": self.misses,
-            "exec_hits": self.exec_hits,
-            "exec_misses": self.exec_misses,
-            "evictions": self.evictions,
+            "counters": {
+                "hits": self.hits,
+                "misses": self.misses,
+                "exec_hits": self.exec_hits,
+                "exec_misses": self.exec_misses,
+                "evictions": self.evictions,
+            },
             "namespaces": {
                 ns: {**self._ns(ns), "entries": sizes[ns]} for ns in sizes
             },
@@ -299,6 +332,19 @@ class PlanCache:
             "init_seconds_spent": self.init_seconds_spent,
             "init_seconds_saved": self.init_seconds_saved,
         }
+
+    def counters(self) -> Dict[str, int]:
+        """View: the flat ``snapshot()["counters"]`` hit/miss aggregates;
+        one taken before a rebuild, diffed after, attributes plan and
+        executor work to that rebuild."""
+        return self.snapshot()["counters"]
+
+    def stats(self) -> Dict[str, Any]:
+        """View: the snapshot's counters hoisted to the top level, then
+        ``"namespaces"``, the entry counts and the init seconds."""
+        snap = self.snapshot()
+        return {**snap["counters"],
+                **{k: v for k, v in snap.items() if k != "counters"}}
 
     def clear(self) -> None:
         self._colls.clear()

@@ -16,7 +16,8 @@ extra row; gather indices pointing at it read zeros, scatter indices
 pointing at it write zeros, and it is dropped when the buffer is consumed.
 
 The executor is built once per plan ("init") and called every iteration:
-persistent-collective semantics.
+persistent-collective semantics.  :func:`time_executor` is the one timing
+protocol of the measured paths (``amg.distributed``, ``core.dense``).
 """
 from __future__ import annotations
 
@@ -27,6 +28,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..obs import now
 from .plan import CommPlan, color_rounds
 
 
@@ -201,6 +203,71 @@ def make_executor(
         return ghost[:, :-1]
 
     return exec_fn
+
+
+def device_sync(device: torch.device) -> None:
+    """Wait for ``device``'s queued work: ``torch.cuda.synchronize`` on a
+    CUDA device, nothing on the CPU, whose ops return finished."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def time_executor(
+    exchange: Callable,
+    n_procs: int,
+    n_pad: int,
+    dtype=np.float64,
+    iters: int = 20,
+    warmup: int = 3,
+    seed: int = 0,
+    device=None,
+) -> float:
+    """Measured wall seconds per exchange of a bound executor.
+
+    The one timing protocol shared by ``amg.distributed`` and
+    ``core.dense``, ported from ``repro.core.collectives.time_executor``:
+    one first call (in place of ``repro``'s compile), ``warmup`` calls,
+    then ``iters`` timed calls, each waiting for the device
+    (:func:`device_sync`, the counterpart of ``block_until_ready``).  The
+    input is a seeded ``[n_procs, max(n_pad, 1), 1]`` tensor made on
+    ``device`` (default ``cuda``), the executor's.  ``dtype`` defaults to
+    float64 to match the plans' ``value_bytes=8`` modeling assumption.
+    """
+    device = resolve_device(device)
+    x = torch.as_tensor(
+        np.random.default_rng(seed)
+        .normal(size=(n_procs, max(n_pad, 1), 1))
+        .astype(dtype),
+        device=device,
+    )
+    if x.dtype != torch.from_numpy(np.zeros(0, dtype)).dtype:
+        raise RuntimeError(
+            f"requested {np.dtype(dtype)} but device materialized {x.dtype}"
+        )
+    return time_calls(exchange, x, iters, warmup)
+
+
+def time_calls(fn: Callable, x: torch.Tensor, iters: int,
+               warmup: int) -> float:
+    """The protocol of :func:`time_executor` on a given input: one first
+    call, ``warmup`` calls, then the mean wall seconds of ``iters`` calls,
+    each waiting for ``x``'s device.  Raises if the first call's output is
+    not of ``x``'s dtype: an executor that casts moves another wire volume
+    than the plans model."""
+    out = fn(x)
+    device_sync(x.device)
+    if out.dtype != x.dtype:
+        raise RuntimeError(
+            f"executor turned {x.dtype} input into {out.dtype} output"
+        )
+    for _ in range(warmup):
+        fn(x)
+        device_sync(x.device)
+    t0 = now()
+    for _ in range(iters):
+        fn(x)
+        device_sync(x.device)
+    return (now() - t0) / iters
 
 
 def pack_local_values(

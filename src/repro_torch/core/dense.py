@@ -37,8 +37,8 @@ Variants
 ``select_dense`` mirrors ``core.selection.select_plan``: build the
 candidate schedules, score each with ``costmodel.stats_time`` under the
 given ``MachineParams``, pick the cheapest, and report the table in a
-:class:`DenseSelection`.  Ported from ``repro.core.dense``; its
-``measure_dense_seconds`` is not ported yet.
+:class:`DenseSelection`.  Ported from ``repro.core.dense``, with
+:func:`measure_dense_seconds`, the dense collectives' calibration feed.
 """
 from __future__ import annotations
 
@@ -53,6 +53,7 @@ import torch
 
 from .. import resolve_device
 from ..obs import default_obs, now as _now
+from .collectives import time_calls
 from .costmodel import LASSEN, MachineParams, stats_time
 from .plan import Message, PlanStats, StepStats, Topology
 
@@ -686,3 +687,54 @@ def unpack_dense_output(plan: DensePlan, out) -> List[np.ndarray]:
         )
         for p in range(P)
     ]
+
+
+# ---------------------------------------------------------------------------
+# measurement (the calibration feed)
+# ---------------------------------------------------------------------------
+
+
+def measure_dense_seconds(
+    plan: DensePlan,
+    device=None,
+    dtype=np.float64,
+    iters: int = 20,
+    warmup: int = 3,
+    seed: int = 0,
+    tracer=None,
+    executor: Optional[Callable] = None,
+) -> float:
+    """Measured wall seconds per collective execution on ``device``
+    (default ``cuda``): the protocol of
+    ``core.collectives.time_executor`` over :func:`bind_dense` (or the
+    given ``executor``) on a seeded input of the plan's layout.
+
+    With ``tracer`` (a ``profile.TraceRecorder``) the timing is recorded
+    against the plan as a ``pure_exchange`` sample under the plan's dense
+    fingerprint; without one, the obs span bridge forwards the same sample
+    to any tracer attached to the enabled obs layer, so dense exchanges
+    feed the rate fit like the sparse transports.
+    """
+    device = resolve_device(device)
+    P = plan.topo.n_procs
+    n_seg, cmax = len(plan.counts), plan.cmax
+    if plan.collective == "allgatherv":
+        shape = (P, cmax)
+    else:
+        shape = (P, n_seg, cmax)
+    fn = executor if executor is not None else bind_dense(plan, device)
+    x = torch.as_tensor(
+        np.random.default_rng(seed).normal(size=shape).astype(dtype),
+        device=device,
+    )
+    with _OBS.span("dense/measure", collective=plan.collective,
+                   variant=plan.variant, n_procs=P) as sp:
+        secs = time_calls(fn, x, iters, warmup)
+        if tracer is not None:
+            tracer.record_plan(plan, secs, label=f"dense/{plan.strategy}",
+                               pure_exchange=True,
+                               fingerprint=plan.fingerprint)
+        else:
+            sp.set(plan=plan, pure_exchange=True, seconds=secs,
+                   fingerprint=plan.fingerprint)
+    return secs

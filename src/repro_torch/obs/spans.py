@@ -1,20 +1,32 @@
 """Structured wall-clock spans over a bounded in-memory ring buffer.
 
-A span is one timed region of the plan -> exchange -> kernel path::
+Ported from ``repro.obs.spans``.  A span is one timed region of the
+plan → exchange → kernel → serve path::
 
     with obs.span("amg/solve", levels=3) as sp:
         ...
         sp.set(iters=it)            # attach attributes mid-flight
 
-Spans nest per-thread (a thread-local stack supplies depth), survive
-exceptions (the ``with`` protocol closes them and tags ``error=...``), and
-land as :class:`SpanEvent` records in a ``collections.deque(maxlen=...)``
-ring, so old events fall off the back.
+Spans nest per-thread (a thread-local stack supplies depth and parent
+identity), survive exceptions (the ``with`` protocol closes them and tags
+``error=...``), and land as :class:`SpanEvent` records in a
+``collections.deque(maxlen=...)`` ring — old events fall off the back, a
+long-lived serve process never grows without bound.
 
-The disabled fast path returns the module singleton :data:`NULL_SPAN`:
-no ``Span`` object, no ring append, no clock read.
+Two non-span record kinds share the ring so the Perfetto exporter can
+interleave them on the same clock:
 
-The clock is ``time.perf_counter`` re-exported as :func:`now`.
+* ``instant`` — a point event (``obs.event("serve/replan", ...)``);
+* ``counter`` — a metric sample for Perfetto counter tracks, emitted by
+  ``Obs`` when a top-level span closes.
+
+The **disabled fast path** returns the module singleton :data:`NULL_SPAN`
+— no ``Span`` object, no ring append, no clock read.  Tests assert the
+identity (``obs.span(...) is NULL_SPAN``) so the fast path cannot
+silently regress into an allocating one.
+
+The clock is ``time.perf_counter`` re-exported as :func:`now`, the
+package's one clock: every timing of ``repro_torch`` reads it.
 """
 from __future__ import annotations
 
@@ -22,7 +34,7 @@ import threading
 import time
 from collections import deque
 from dataclasses import dataclass, field
-from typing import Any, Deque, Dict
+from typing import Any, Deque, Dict, Optional
 
 now = time.perf_counter
 
@@ -31,13 +43,14 @@ DEFAULT_RING_SIZE = 65536
 
 @dataclass
 class SpanEvent:
-    """One closed span in the ring."""
+    """One closed span (or instant/counter record) in the ring."""
 
     name: str
     t0: float                       # perf_counter seconds
     t1: float
     depth: int = 0
     tid: int = 0
+    kind: str = "span"              # "span" | "instant" | "counter"
     attrs: Dict[str, Any] = field(default_factory=dict)
 
     @property
@@ -108,11 +121,16 @@ class Span:
 
 
 class SpanRecorder:
-    """Ring buffer + per-thread span stacks."""
+    """Ring buffer + per-thread span stacks.
+
+    ``on_close`` (set by ``Obs``) observes every closed *span* event —
+    the hook point for the TraceRecorder bridge and counter sampling.
+    """
 
     def __init__(self, ring_size: int = DEFAULT_RING_SIZE):
         self.ring: Deque[SpanEvent] = deque(maxlen=ring_size)
         self._local = threading.local()
+        self.on_close = None        # Optional[Callable[[SpanEvent], None]]
         self.dropped = 0            # ring evictions (ring full)
 
     def _stack(self) -> list:
@@ -121,8 +139,25 @@ class SpanRecorder:
             st = self._local.stack = []
         return st
 
+    @property
+    def depth(self) -> int:
+        return len(self._stack())
+
     def span(self, name: str, **attrs) -> Span:
         return Span(self, name, attrs)
+
+    def event(self, name: str, **attrs) -> None:
+        t = now()
+        self._append(SpanEvent(name=name, t0=t, t1=t,
+                               depth=len(self._stack()),
+                               tid=threading.get_ident(),
+                               kind="instant", attrs=attrs))
+
+    def counter_sample(self, name: str, value: float) -> None:
+        t = now()
+        self._append(SpanEvent(name=name, t0=t, t1=t, kind="counter",
+                               tid=threading.get_ident(),
+                               attrs={"value": float(value)}))
 
     def _append(self, ev: SpanEvent) -> None:
         if len(self.ring) == self.ring.maxlen:
@@ -132,12 +167,27 @@ class SpanRecorder:
     def _close(self, span: Span, t1: float) -> None:
         ev = SpanEvent(name=span.name, t0=span.t0, t1=t1,
                        depth=span._depth, tid=threading.get_ident(),
-                       attrs=span.attrs)
+                       kind="span", attrs=span.attrs)
         self._append(ev)
+        if self.on_close is not None:
+            self.on_close(ev)
 
-    def events(self) -> list:
-        return list(self.ring)
+    def events(self, kind: Optional[str] = None) -> list:
+        evs = list(self.ring)
+        if kind is not None:
+            evs = [e for e in evs if e.kind == kind]
+        return evs
 
     def clear(self) -> None:
         self.ring.clear()
         self.dropped = 0
+
+    def tree(self) -> str:
+        """Indented close-order listing of spans: the quick-look view."""
+        lines = []
+        for ev in self.ring:
+            if ev.kind != "span":
+                continue
+            lines.append(f"{'  ' * ev.depth}{ev.name} "
+                         f"{ev.duration * 1e3:.3f}ms")
+        return "\n".join(lines)

@@ -1,10 +1,10 @@
 """Batched serving engine: request queue -> fixed-slot batch -> decode loop.
 
 Ported from ``repro.serve.engine`` (``Request``, ``ServeEngine`` with
-``submit``, ``step``, ``run_until_drained`` and the pre-warmed decode and
-worst-case prefill dispatch plans).  The adaptive re-planner, elastic
-resizing, the obs/refit loop and ``verify`` are still to port (ROADMAP
-Queue 1 item 7).
+``submit``, ``step``, ``run_until_drained``, the pre-warmed decode and
+worst-case prefill dispatch plans, and the ``serve/request_seconds``,
+``serve/steps`` and ``serve/tokens`` metrics).  The adaptive re-planner,
+elastic resizing, the observe/refit loop and ``verify`` are still to port.
 
 Static batch slots: requests are admitted into free slots and the whole
 batch prefills together (each active slot re-presents its full history as
@@ -15,7 +15,7 @@ recycled.  Greedy sampling (argmax).
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -23,6 +23,13 @@ import torch
 from ..core.cache import default_plan_cache
 from ..models import serving
 from ..models.lm import Model
+from ..obs import default_obs, now
+
+_OBS = default_obs()
+_H_REQUEST = _OBS.histogram("serve/request_seconds",
+                            "per-request admit->finish latency")
+_C_STEPS = _OBS.counter("serve/steps", "engine steps taken")
+_C_TOKENS = _OBS.counter("serve/tokens", "tokens decoded (all slots)")
 
 
 @dataclasses.dataclass
@@ -46,6 +53,7 @@ class ServeEngine:
         self.caches = None
         self.cur_len = 0
         self._next_tok = np.zeros((batch_slots, 1), np.int32)
+        self._admit_times: Dict[int, float] = {}
         # MoE dispatch planning is hoisted out of the decode loop: the
         # decode plan (one token per slot) is built here and every decode
         # step hits it; prefill dispatch is planned once for the worst case
@@ -78,7 +86,10 @@ class ServeEngine:
         if not free or not self.queue:
             return False
         while free and self.queue:
-            self.slots[free.pop(0)] = self.queue.pop(0)
+            req = self.queue.pop(0)
+            self.slots[free.pop(0)] = req
+            if _OBS.enabled:
+                self._admit_times[req.rid] = now()
         self._prefill_slots()
         return True
 
@@ -106,6 +117,7 @@ class ServeEngine:
         """One engine step: admit if possible, then decode one token for the
         active batch.  Returns the requests completed this step."""
         finished: List[Request] = []
+        _C_STEPS.inc()
         if any(s is None for s in self.slots) and self.queue:
             self._admit()
         if self.caches is None:
@@ -123,6 +135,7 @@ class ServeEngine:
         self.cur_len += 1
         self._next_tok = torch.argmax(logits, dim=-1).to(
             torch.int32).cpu().numpy()[:, None]
+        _C_TOKENS.inc(len(active))
         for i in active:
             s = self.slots[i]
             if (len(s.generated) >= s.max_new_tokens
@@ -130,6 +143,9 @@ class ServeEngine:
                 s.done = True
                 finished.append(s)
                 self.slots[i] = None
+                t_admit = self._admit_times.pop(s.rid, None)
+                if t_admit is not None:
+                    _H_REQUEST.observe(now() - t_admit)
         return finished
 
     def run_until_drained(self, max_steps: int = 10_000) -> List[Request]:

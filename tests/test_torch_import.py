@@ -54,7 +54,10 @@ def test_port_imports_no_jax_and_no_reference_package():
                 "repro_torch.models.serving", "repro_torch.serve.engine",
                 "repro_torch.configs.zamba2_7b",
                 "repro_torch.configs.mamba2_780m", "repro_torch.models.ssm",
-                "repro_torch.kernels.ssd_scan.cuda"):
+                "repro_torch.kernels.ssd_scan.cuda",
+                "repro_torch.obs.metrics", "repro_torch.obs.export",
+                "repro_torch.profile.trace",
+                "repro_torch.profile.calibrate"):
         assert mod in report["imported"]
     assert "chip_smoke" in report["loaded"]
     assert [m for m in report["loaded"] if _reference(m)] == []

@@ -70,6 +70,69 @@ def test_chip_smoke_phases_run_on_cpu():
                                                    "ragged"}
 
 
+def test_chip_smoke_calibrate_phase_runs_on_cpu(tmp_path):
+    """The calibrate phase's host steps at a small size: probes, the paper
+    problem's measurements, the fit (saved, then gated), its round trip,
+    the planted x10 fault, the flips and the solve with every ``auto``
+    under the fit against the host history.  The figures stand in for a
+    card's; the times are the CPU's, so only the control flow and the
+    checks are rehearsed."""
+    chip_smoke = _chip_smoke()
+    from repro_torch import configs
+
+    res = chip_smoke.run("cpu", rows=4096, block_cols=16, v_cycles=2)
+    part = chip_smoke.partitioned_run(res, coarse_max_iters=2, dense_n=256)
+    figures = dict(vmem_limit=20000, hbm_bw=chip_smoke.PEAK_BYTES_PER_S,
+                   vpu_flops=chip_smoke.PEAK_FLOPS["float64"],
+                   launch_s=3e-5)
+    cal = chip_smoke.calibrate_phase(
+        res, part, figures, tmp_path, n_per=256, n_per_fine=1024,
+        serve_cfg=configs.reduced(chip_smoke.SERVE_ARCH))
+    assert (tmp_path / "trace.json").is_file()
+    assert (tmp_path / "fitted_params.json").is_file()
+    assert cal["params"].name == "fitted-h100"
+    assert cal["gof"]["rel_rmse"] <= chip_smoke.FIT_RMSE_GATE
+    assert cal["oracle"]["worst_rel"] <= chip_smoke.ORACLE_RTOL
+    assert cal["planted"]["worst_rel"] <= chip_smoke.ORACLE_RTOL
+    n_levels = len(res["host"]["h"].levels)
+    assert len(cal["flips"]) == len(cal["levels"]) == n_levels
+    assert set(cal["moe"]) == {"decode", "prefill"}
+    assert cal["max_rel_dev"] <= chip_smoke.HIST_RTOL
+    assert np.isfinite(cal["per_round"]["per_round"])
+    # impure SpMV samples are recorded but stay out of the fit
+    assert cal["summary"]["samples"] > cal["summary"]["pure_samples"]
+    assert all(n == 0 for n in cal["launches"].values())   # no card
+
+
+def test_fit_oracle_holds_the_rates_the_probes_excite(monkeypatch):
+    """At rates whose inter latency outweighs the injection cap in every
+    probe, the probes do not excite the cap: any value of it gives the
+    same probe times, so the round trip holds the other four rates (to
+    1e-6) and prints the cap; at ``LASSEN`` the probes excite all five.
+    A fit that ignores the times is refused."""
+    import repro_torch.profile
+    from repro_torch.core import LASSEN, MachineParams, Topology
+    from repro_torch.profile import CalibrationResult
+
+    chip_smoke = _chip_smoke()
+    slow_inter = MachineParams(
+        name="slow-inter", alpha_intra=9.4e-05, beta_intra=1.19e9,
+        alpha_inter=4.1e-04, beta_inter=4.86e9, region_injection_bw=1.96e9)
+    got = chip_smoke.check_fit_oracle(slow_inter, Topology(8, 4), 16384)
+    assert got["excited"] == list(chip_smoke.RATE_FIELDS[:4])
+    assert got["worst_rel"] <= chip_smoke.ORACLE_RTOL
+    assert chip_smoke.check_fit_oracle(LASSEN, Topology(8, 4), 16384)[
+        "excited"] == list(chip_smoke.RATE_FIELDS)
+
+    def ignores_the_times(trace, name="fitted", ref=LASSEN):
+        return CalibrationResult(ref, ref, {"converged": 1.0,
+                                            "rel_rmse": 0.0}, 1)
+
+    monkeypatch.setattr(repro_torch.profile, "fit_trace", ignores_the_times)
+    with pytest.raises(SystemExit, match="fit oracle"):
+        chip_smoke.check_fit_oracle(slow_inter, Topology(8, 4), 16384)
+
+
 @pytest.mark.parametrize("name", ["spmv_ell_blocked",
                                   "spmv_ell_blocked_partial"])
 def test_cold_copies_compute_the_same_call(name):
