@@ -44,7 +44,16 @@ any phase fails:
    row is NaN, which its sentinels must not read; K5 with indices -1, N
    and N + 5 before NaN rows, which must give zero rows), times the largest
    calls (from a cold L2), checks that K7 refuses a head dim it is not
-   built for, and profiles a short serve run;
+   built for, and profiles a short serve run; then, on the same weights,
+   the adaptive engine (``ServeEngine(adaptive=True, observe=True,
+   refit_every=8)`` under ``auto``): 12 steady decode steps must re-plan
+   nothing (no event, no new plan-cache or executor miss); with every MoE
+   layer's router zeroed exactly one ``ReplanEvent`` must fire (drift above
+   0.3, a transport mode) and none in 4 more steps, each of which is held
+   to its replay through the plain K5-K7 under the new plan (logits within
+   2^-5; K5-K7 must launch); at least one converged ``RefitEvent`` must set
+   the planner's params; ``engine.verify()`` passes before and after and
+   refuses a planted broken plan; the router is restored;
 6. hybrid serve: draws zamba2-7b at full width and depth in bf16 on the
    card (seeded) and serves six requests through ``ServeEngine``, counting
    K7 / K8 calls and CUDA launches per prefill and decode step; holds
@@ -67,7 +76,18 @@ any phase fails:
    within 1e-8) and resumes a solve from its third iterate (``x0``);
    then runs the dense executor (``bind_dense``) for every collective x
    variant on three count sets, bitwise equal to ``execute_numpy``, timed;
-8. calibrate, last (no profiler): times the rate probes
+8. verify: ``verify_hierarchy`` over the paper hierarchy in the flat and
+   blocked layouts (the flat one set up with ``REPRO_VERIFY=1``, so every
+   plan, executor and dense executor is checked on insertion; the seconds
+   by namespace printed) and over the partitioned hierarchy, the blocked
+   ones on the bucket-major operands the card holds; every CUDA kernel's
+   attributes against the card's limits (one JSON line; registers
+   cross-checked with the ``ptxas`` log); and five planted faults that must
+   be refused naming their rank, slot, bucket or kernel (a moved ELL
+   nonzero, a bucket dropped from K4's map, a swapped scatter index, an
+   executor audited against a foreign plan, K7 over the shared-memory
+   limit);
+9. calibrate, last (no profiler): times the rate probes
    (``profile.probe_plans`` on ``Topology(8, 4)``, 16,384 values a
    message, every strategy), the paper problem's exchanges
    (``measure_exchange_seconds``), its SpMVs flat/off and blocked/off
@@ -88,7 +108,7 @@ any phase fails:
    fit and the card's own figures (:func:`card_figures`) against the host
    history, each level's choices beside ``LASSEN``'s and beside the faster
    measured SpMV;
-9. checks that each path launched each of its kernels (the AMG solves
+10. checks that each path launched each of its kernels (the AMG solves
    the launches per V-cycle of ``VCYCLE_LAUNCHES``, the partitioned solve
    K2 and K4, the calibrate phase K1, K2 and K4), and prints one JSON
    line with every kernel's record: calls (``launches``) and
@@ -1005,7 +1025,8 @@ def partitioned_phase(h, b, host_setup_s: float, device, block_cols: int,
         fail(f"partitioned solve: history {hist} vs host {host_hist}")
     out = dict(setup_s=setup_s, host_setup_s=host_setup_s,
                ms_per_vcycle=ms, max_rel_dev=dev, launches=launches,
-               n_levels=info.n_levels, setup_records=info.records)
+               n_levels=info.n_levels, setup_records=info.records,
+               hierarchy=dh)
     if on_card:
         prof = profile_solve(dh, b, ms)
         out.update(prof)
@@ -1077,6 +1098,264 @@ def partitioned_phase(h, b, host_setup_s: float, device, block_cols: int,
         "equal to the full solve's at rtol 1e-8, atol 1e-15")
     counts = np.diff(np.asarray(dh.levels[-1].A.part.col_offsets))
     return out, [int(c) for c in counts]
+
+
+# --------------------------------------------------------------- verify phase
+@contextlib.contextmanager
+def verify_on_insertion():
+    """``REPRO_VERIFY=1`` while the block runs: every plan, executor and
+    dense executor entering a plan cache is verified."""
+    import os
+
+    saved = os.environ.get("REPRO_VERIFY")
+    os.environ["REPRO_VERIFY"] = "1"
+    try:
+        yield
+    finally:
+        if saved is None:
+            del os.environ["REPRO_VERIFY"]
+        else:
+            os.environ["REPRO_VERIFY"] = saved
+
+
+def refused(label: str, fn) -> dict:
+    """``fn()`` must raise a ``VerifyError`` naming a rank, slot, bucket or
+    kernel; returns its context."""
+    from repro_torch.verify import VerifyError
+
+    try:
+        fn()
+    except VerifyError as e:
+        named = [k for k in ("rank", "slot", "bucket", "kernel", "ghost_slot")
+                 if k in e.context]
+        if not named:
+            fail(f"verify: planted fault {label} refused without naming a "
+                 f"rank, slot or bucket: {e}")
+        log(f"verify refuses a planted fault, {label}: {e}")
+        return dict(e.context)
+    fail(f"verify: planted fault {label} was not refused")
+
+
+def planted_verify_faults(dh, attrs: list, limits: dict, device) -> dict:
+    """The five planted faults of the verify phase, on the card's objects
+    of the blocked hierarchy ``dh`` (its first level with a ghost bucket)
+    and the kernel attributes."""
+    import dataclasses as dc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import NeighborAlltoallV, make_executor
+    from repro_torch.sparse import row_block_bucket_map
+    from repro_torch.verify import (
+        audit_executor,
+        check_bucket_map,
+        check_kernel_attributes,
+        verify_ell_blocked,
+    )
+
+    k = next(i for i, lv in enumerate(dh.levels)
+             if lv.A.ell.n_ghost_buckets and lv.A.coll.device_plan.n_rounds)
+    op = dh.levels[k].A
+    ell = op.ell
+    cols, vals = dh.bound_product(k, "A").operands
+    out = {}
+
+    # a nonzero of the card's bucket-major operands moved to another row
+    bad_vals = vals.clone()
+    b, r, kk = torch.nonzero(bad_vals[0] != 0)[0].tolist()
+    r2, k2 = torch.nonzero(bad_vals[0, b] == 0)[-1].tolist()
+    bad_vals[0, b, r2, k2] = bad_vals[0, b, r, kk]
+    bad_vals[0, b, r, kk] = 0
+    out["moved_nonzero"] = refused(
+        f"a nonzero of level {k} moved in bucket {b} from row {r} to row "
+        f"{r2}", lambda: verify_ell_blocked(ell, op.part, cols, bad_vals))
+
+    # a live bucket dropped from K4's skip map
+    lists, counts = row_block_bucket_map(ell)
+    p, rb = (int(v) for v in np.argwhere(counts > 0)[0])
+    counts = counts.copy()
+    lists = lists.copy()
+    counts[p, rb] -= 1
+    lists[p, rb, int(counts[p, rb])] = 0
+    out["dropped_bucket"] = refused(
+        f"level {k} rank {p} row block {rb}'s last bucket dropped",
+        lambda: check_bucket_map(ell, lists, counts))
+
+    # one round's scatter indices swapped for one rank, bound and audited
+    dplan = op.coll.device_plan
+    bad_plan = dc.replace(dplan, steps=[
+        dc.replace(st, rounds=list(st.rounds)) for st in dplan.steps])
+    st = next(st for st in bad_plan.steps
+              if any(rnd.width > 1 for rnd in st.rounds))
+    i = next(i for i, rnd in enumerate(st.rounds) if rnd.width > 1)
+    rnd = st.rounds[i]
+    sc = rnd.scatter.copy()
+    q = int(np.argmax((sc[:, 0] != sc[:, 1])))
+    sc[q, [0, 1]] = sc[q, [1, 0]]
+    st.rounds[i] = dc.replace(rnd, scatter=sc)
+    out["swapped_scatter"] = refused(
+        f"level {k} step {st.name} round {i}: rank {q}'s first two scatter "
+        "indices swapped",
+        lambda: audit_executor(make_executor(bad_plan, device), dplan,
+                               device))
+
+    # the level's executor audited against its pattern's plan under
+    # another strategy
+    other = next(s for s in ("standard", "partial", "full")
+                 if s != op.coll.strategy)
+    foreign = NeighborAlltoallV.init(op.part.pattern, dh.topo, other)
+    fn = dh.cache.executor(op.part.pattern, dh.topo, device,
+                           strategy=dh.strategy, value_bytes=dh.value_bytes,
+                           params=dh.params)
+    out["foreign_plan"] = refused(
+        f"level {k}'s {op.coll.strategy} executor audited against the "
+        f"{other} plan of its pattern",
+        lambda: audit_executor(fn, foreign.device_plan, device))
+
+    # K7's widest prefill launched with more shared memory than the card has
+    k7 = max((a for a in attrs if a["name"].startswith("attn_prefill")),
+             key=lambda a: a["dyn_smem"])
+    over = dict(k7, dyn_smem=limits["smem_per_block_optin"] + 1024,
+                max_dyn_smem=limits["smem_per_block_optin"] + 1024)
+    out["k7_smem"] = refused(
+        f"{k7['name']} with {over['dyn_smem']} bytes of dynamic shared "
+        "memory", lambda: check_kernel_attributes([over], limits))
+    return out
+
+
+def verify_seconds_by_namespace() -> dict:
+    """The ``plan_cache/verify_seconds`` histogram: (insertions, seconds)
+    by namespace."""
+    from repro_torch.obs import default_obs
+
+    hist = default_obs().snapshot()["histograms"].get(
+        "plan_cache/verify_seconds", {"series": []})
+    return {row["labels"].get("ns", ""): (row["count"], row["sum"])
+            for row in hist["series"]}
+
+
+def verify_phase(amg: dict, part_res: dict, on_card: bool) -> dict:
+    """The verifier on the card's objects: ``verify_hierarchy`` over the
+    host-built paper hierarchy in the flat and blocked layouts (the flat
+    one set up with ``REPRO_VERIFY=1`` and a coarse allgatherv, so every
+    plan, executor and dense executor is checked on insertion; the seconds
+    by namespace logged) and over ``setup_partitioned``'s hierarchy; every
+    CUDA kernel's attributes against the card's limits (one JSON line); and
+    five planted faults, each of which must be refused naming its rank,
+    slot, bucket or kernel.  A ``VerifyError`` on a valid object ends the
+    run."""
+    from repro_torch import resolve_device
+    from repro_torch.amg import DistributedHierarchy
+    from repro_torch.core import PlanCache
+    from repro_torch.kernels.flash_attention import cuda as fa_cuda
+    from repro_torch.kernels.moe_pack import cuda as mp_cuda
+    from repro_torch.kernels.spmv_ell import cuda as sp_cuda
+    from repro_torch.kernels.ssd_scan import cuda as ssd_cuda
+    from repro_torch.obs import default_obs
+    from repro_torch.verify import (
+        check_build_log_registers,
+        check_kernel_attributes,
+        read_kernel_attributes,
+        verify_hierarchy,
+    )
+
+    host = amg["host"]
+    h, bc = host["h"], host["block_cols"]
+    device = resolve_device(host["device"])
+    t_phase = time.perf_counter()
+    obs = default_obs()
+    obs.reset()
+    obs.enable()
+    out: dict = {"hierarchies": {}}
+    hierarchies = {}
+    try:
+        for variant in ("flat", "blocked"):
+            insertion = variant == "flat"
+            t0 = time.perf_counter()
+            with (verify_on_insertion() if insertion
+                  else contextlib.nullcontext()):
+                dh = DistributedHierarchy.setup(
+                    h, N_PROCS, procs_per_region=PROCS_PER_REGION,
+                    strategy="auto", cache=PlanCache(), spmv_variant=variant,
+                    spmv_block_cols=bc,
+                    coarse_gather="auto" if insertion else "off",
+                    device=device)
+            setup_s = time.perf_counter() - t0
+            if insertion:
+                by_ns = verify_seconds_by_namespace()
+                out["insertion"] = dict(setup_s=setup_s, by_ns=by_ns)
+                log(f"verify: {variant} set-up with REPRO_VERIFY=1 in "
+                    f"{setup_s:.2f} s; verify on insertion by namespace "
+                    "(insertions, seconds): " + ", ".join(
+                        f"{ns} {n} {sec:.3f}"
+                        for ns, (n, sec) in sorted(by_ns.items())))
+                if not by_ns.get("collective", (0,))[0] or not by_ns.get(
+                        "executor_audit", (0,))[0] or not by_ns.get(
+                        "dense_executor_audit", (0,))[0]:
+                    fail(f"verify: insertions not all verified: {by_ns}")
+            hierarchies[variant] = dh
+        hierarchies["partitioned"] = part_res["partitioned"]["hierarchy"]
+        for name, dh in hierarchies.items():
+            t0 = time.perf_counter()
+            counts = verify_hierarchy(dh)
+            secs = time.perf_counter() - t0
+            out["hierarchies"][name] = dict(counts=counts, seconds=secs)
+            log(f"verify_hierarchy {name}: {counts} in {secs:.2f} s")
+    finally:
+        obs.disable()
+    spans = {}
+    for ev in obs.spans.events():
+        if ev.name.startswith("verify/"):
+            spans[ev.name] = spans.get(ev.name, 0.0) + ev.duration
+    log("verify: seconds by pass (spans): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in sorted(spans.items())))
+    out["pass_seconds"] = spans
+
+    attrs, limits = (read_kernel_attributes(device) if on_card
+                     else (stand_in_attributes(), STAND_IN_LIMITS))
+    print(json.dumps({"kernel_attributes": attrs, "device_limits": limits}))
+    got = check_kernel_attributes(attrs, limits)
+    # the CPU rehearsal builds nothing, so it has no ptxas log to read
+    logged = ({lib.source.name: check_build_log_registers(
+        attrs, lib.source.name, lib.build_log)
+        for lib in (sp_cuda.LIBRARY, mp_cuda.LIBRARY, fa_cuda.LIBRARY,
+                    ssd_cuda.LIBRARY)} if on_card else "not built here")
+    worst = max(attrs, key=lambda a: a["num_regs"] * a["threads"])
+    log(f"verify: {got['kernels']} CUDA kernels within the card's limits "
+        f"({got['k7_head_dims']} K7 prefill head dims at their tiles' "
+        f"shared memory; most registers a block: {worst['name']} "
+        f"{worst['num_regs']} x {worst['threads']}); register counts "
+        f"against the ptxas log: {logged}")
+    out["kernels_checked"] = got
+    out["planted"] = planted_verify_faults(hierarchies["blocked"], attrs,
+                                           limits, device)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"verify phase {out['seconds']:.1f} s")
+    return out
+
+
+# stand-ins for the CPU rehearsal, which has no card to read: the H100's
+# limits, and one entry of each launch shape the checks parse
+STAND_IN_LIMITS = dict(regs_per_sm=65536, smem_per_block_optin=232448,
+                       smem_per_sm=233472, threads_per_sm=2048, sm_count=132,
+                       regs_per_block=65536)
+
+
+def stand_in_attributes() -> list:
+    from repro_torch.verify import flash_prefill_smem_bytes
+
+    base = dict(num_regs=32, static_smem=0, max_threads_per_block=1024,
+                local_bytes=0, threads=128, dyn_smem=0, blocks_per_sm=8,
+                min_blocks=1, max_dyn_smem=49152)
+    smem = flash_prefill_smem_bytes(4, 256)
+    return [dict(base, name="spmv_ell_kernel<f64>", source="spmv_ell.cu",
+                 symbol="_Z15spmv_ell_kernelIdEvv", threads=256,
+                 min_blocks=0),
+            dict(base, name="attn_prefill_kernel<f32,256>",
+                 source="flash_attention.cu",
+                 symbol="_Z19attn_prefill_kernelIfLi256EEvv", dyn_smem=smem,
+                 max_dyn_smem=smem, blocks_per_sm=1)]
 
 
 def dense_phase(coarse_counts, device, on_card: bool,
@@ -2722,6 +3001,181 @@ def profile_serve(model, params, sizes: dict, on_card: bool) -> dict:
                 device_ops=len(on_device), top_device=top)
 
 
+# ------------------------------------------------------------ adaptive phase
+ADAPT_REFIT_EVERY = 8          # decode steps between online refits
+ADAPT_WARM_STEPS = 9           # decode steps before the steady window: the
+#                                first refit (step 8) binds its probe
+ADAPT_STEADY_STEPS = 12        # steady decode steps: no event, no new miss
+ADAPT_DRIFT_MAX_STEPS = 12     # decode steps allowed for the drift to fire
+ADAPT_AFTER_STEPS = 4          # decode steps after the swap, each held to
+#                                the plain K5-K7
+ADAPT_DRIFT_MIN = 0.3          # the engine's drift threshold
+
+
+def adaptive_sizes(on_card: bool) -> dict:
+    """Four requests on the four slots, long enough that no slot finishes
+    in the phase; off the card, the CPU rehearsal's tiny sizes."""
+    if on_card:
+        return dict(slots=4, max_len=512, prompts=(64, 64, 64, 64),
+                    new=(48, 48, 48, 48))
+    return dict(slots=4, max_len=64, prompts=(6, 6, 6, 6),
+                new=(48, 48, 48, 48))
+
+
+def oracle_decode(fn, model, engine, got: list, want: list, launched: dict):
+    """``fn`` (an engine decode function) wrapped so that each step is also
+    replayed through the plain K5-K7 on a copy of the caches it is given,
+    under the engine's pinned plan and the step's own routing decisions;
+    the logits of both land in ``got`` / ``want`` and the launches of the
+    kernel run add into ``launched``."""
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.models import serving
+
+    def run(p, i, c, n):
+        saved = tuple({k: v.clone() for k, v in layer.items()} for layer in c)
+        decisions: list = []
+        before = dict(LAUNCHES)
+        with routing(decisions, replay=False):
+            out = fn(p, i, c, n)
+        for k in LAUNCHES:
+            launched[k] = launched.get(k, 0) + LAUNCHES[k] - before[k]
+        with plain_kernels(), routing(decisions, replay=True):
+            ref = serving.decode_step(model, p, i, saved, n,
+                                      moe_plan=engine.moe_plan,
+                                      return_moe_stats=True)
+        got.append(out[0].float().cpu())
+        want.append(ref[0].float().cpu())
+        return out
+
+    return run
+
+
+def adaptive_phase(model, params, on_card: bool) -> dict:
+    """The adaptive engine on the served model's weights: ``ServeEngine(
+    adaptive=True, observe=True, refit_every=8)`` under ``auto``.  Steady
+    decode must re-plan nothing (no event, no new plan-cache or executor
+    miss); with every MoE layer's router zeroed (ties go to the lower
+    expert ids, so every token lands on the experts 0..top_k-1) exactly one
+    ``ReplanEvent`` must fire, with a drift above 0.3 and a transport mode,
+    and none after; every decode step after the swap is held to its replay
+    through the plain K5-K7 within ``LOGIT_TOL``, and K5-K7 must launch
+    there; at least one converged ``RefitEvent`` must set the planner's
+    params; ``engine.verify()`` passes before and after the re-plan and
+    refuses a planted broken plan.  The router is restored after."""
+    import torch
+
+    from repro_torch.obs import default_obs
+    from repro_torch.serve import ServeEngine
+    from repro_torch.verify import VerifyError
+
+    sizes = adaptive_sizes(on_card)
+    obs = default_obs()
+    t_phase = time.perf_counter()
+    eng = ServeEngine(model, params, batch_slots=sizes["slots"],
+                      max_len=sizes["max_len"], adaptive=True, observe=True,
+                      refit_every=ADAPT_REFIT_EVERY)
+    before_verify = eng.verify()
+    for r in serve_requests(model.cfg.vocab, sizes):
+        eng.submit(r)
+    for _ in range(ADAPT_WARM_STEPS):
+        eng.step()
+    card_sync(on_card)
+    cache = eng.plan_cache
+    m0, e0 = cache.misses, cache.exec_misses
+    t0 = time.perf_counter()
+    for _ in range(ADAPT_STEADY_STEPS):
+        eng.step()
+    card_sync(on_card)
+    steady_ms = (time.perf_counter() - t0) * 1e3 / ADAPT_STEADY_STEPS
+    new_misses = (cache.misses - m0, cache.exec_misses - e0)
+    log(f"adaptive: {ADAPT_STEADY_STEPS} steady decode steps "
+        f"({steady_ms:.3f} ms a step, refits included), decode plan "
+        f"{eng.moe_plan.mode}; replan events {len(eng.replan_events)}, new "
+        f"plan-cache / executor misses {new_misses}; verify "
+        f"{before_verify}")
+    if eng.replan_events or new_misses != (0, 0):
+        fail(f"adaptive: steady decode re-planned ({eng.replan_events}, "
+             f"new misses {new_misses})")
+
+    router = params["blocks"]["moe"]["router"]
+    saved_router = router.clone()
+    router.zero_()
+    try:
+        old_mode = eng.moe_plan.mode
+        steps = 0
+        while not eng.replan_events and steps < ADAPT_DRIFT_MAX_STEPS:
+            eng.step()
+            steps += 1
+        events = list(eng.replan_events)
+        if len(events) != 1:
+            fail(f"adaptive: {len(events)} replan events in {steps} steps "
+                 "after the router was zeroed, expected 1")
+        ev = events[0]
+        log(f"adaptive: router zeroed; {ev} after {steps} steps "
+            f"(mode {old_mode} -> {eng.moe_plan.mode})")
+        if not (ev.drift > ADAPT_DRIFT_MIN
+                and ev.new_mode in ("a2a", "hier", "hier_dedup")
+                and eng.moe_plan is eng.planner.plan):
+            fail(f"adaptive: event {ev} (drift must exceed "
+                 f"{ADAPT_DRIFT_MIN}, mode a transport)")
+        got, want, launched = [], [], {}
+        eng._decode = oracle_decode(eng._decode, model, eng, got, want,
+                                    launched)
+        for _ in range(ADAPT_AFTER_STEPS):
+            eng.step()
+        card_sync(on_card)
+        if len(eng.replan_events) != 1 or len(got) != ADAPT_AFTER_STEPS:
+            fail(f"adaptive: {len(eng.replan_events)} events after "
+                 f"{ADAPT_AFTER_STEPS} more steps ({len(got)} checked)")
+        res = compare_logits(got, want)
+        log(f"adaptive: {ADAPT_AFTER_STEPS} decode steps after the swap "
+            f"against the plain K5-K7 under the new plan: max |logit diff| "
+            f"/ max |logit| {res['rel_err']:.3e} (tolerance {LOGIT_TOL}), "
+            f"greedy tokens differ on {res['differ']} of {res['sure']} rows "
+            f"with a clear margin; launches {launched}")
+        if not res["rel_err"] <= LOGIT_TOL or res["differ"]:
+            fail(f"adaptive: logits after the swap off the plain replay by "
+                 f"{res['rel_err']:.3e}")
+        missing = [k for k in SERVE_SOURCES if launched.get(k, 0) <= 0]
+        if on_card and missing:
+            fail(f"adaptive: kernels not launched after the swap: {missing}")
+        after_verify = eng.verify()
+        broken = dataclasses.replace(eng.moe_plan,
+                                     e_per_dev=eng.moe_plan.e_per_dev + 1)
+        live = eng.moe_plan
+        eng.moe_plan = broken
+        try:
+            eng.verify()
+            fail("adaptive: engine.verify() accepted a broken MoEPlan")
+        except VerifyError as e:
+            log(f"adaptive: engine.verify() refuses a planted fault, "
+                f"e_per_dev + 1: {e}")
+        finally:
+            eng.moe_plan = live
+    finally:
+        router.copy_(saved_router)
+        obs.disable()
+        obs.attach_tracer(None)
+    refits = list(eng.refit_events)
+    if not refits or eng.planner.params is not eng.machine_params:
+        fail(f"adaptive: refits {refits}; planner params "
+             f"{getattr(eng.planner.params, 'name', None)} are not the "
+             "fitted set")
+    fitted = eng.machine_params
+    log(f"adaptive: {len(refits)} converged refits ({refits[-1]}); fitted "
+        f"params: " + ", ".join(
+            f"{f.name}={getattr(fitted, f.name):.4g}"
+            for f in dataclasses.fields(fitted)
+            if isinstance(getattr(fitted, f.name), float)))
+    log(f"adaptive: verify before {before_verify}, after {after_verify}; "
+        f"phase {time.perf_counter() - t_phase:.1f} s")
+    return dict(steady_ms=steady_ms, event=str(ev), drift=ev.drift,
+                old_mode=ev.old_mode, new_mode=ev.new_mode,
+                oracle_rel_err=res["rel_err"], launched=launched,
+                refits=[str(r) for r in refits], fitted=dataclasses.asdict(
+                    fitted), seconds=time.perf_counter() - t_phase)
+
+
 def serve_run(device: str = "cuda", reduced_config: bool = False) -> dict:
     """The serve phase: DeepSeek-V2-Lite (full width and depth on the card,
     the reduced config for the CPU rehearsal) in bf16 on 8 stacked EP lanes,
@@ -2862,9 +3316,10 @@ def serve_run(device: str = "cuda", reduced_config: bool = False) -> dict:
             f"ms, device busy {prof['busy_ms']:.1f} ms, idle share "
             f"{prof['idle_share']:.3f}, {prof['device_ops']} device ops; "
             f"most device ms: {prof['top_device']}")
+    adaptive = adaptive_phase(model_for("auto"), params, on_card)
     return dict(modes=modes, launches=launches, cuda_launches=cuda_launches,
                 kernels=kernels, profile=prof, n_params=n_params,
-                n_bytes=n_bytes)
+                n_bytes=n_bytes, adaptive=adaptive)
 
 
 def run(device: str = "cuda", rows: int = 524_288, block_cols: int = 512,
@@ -2961,6 +3416,13 @@ def main() -> int:
     smi = nvidia_smi_line()
     log(f"device: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     build_kernels()
+    phases = {"build": time.perf_counter() - t_start}
+
+    def done(name: str) -> None:
+        phases[name] = time.perf_counter() - t_start - sum(phases.values())
+        log(f"{name} phase done at {time.perf_counter() - t_start:.1f} s "
+            f"({phases[name]:.1f} s)")
+
     res = run("cuda")
     missing = [k for k, n in res["launches"].items() if n <= 0]
     log(f"kernels launched by the solves: {res['launches']}")
@@ -2972,19 +3434,19 @@ def main() -> int:
         if got != want:
             fail(f"solve {'/'.join(config)}: launches per V-cycle {got}, "
                  f"expected {want}")
-    log(f"AMG phases done at {time.perf_counter() - t_start:.1f} s")
+    done("AMG")
     serve = serve_run("cuda")
     missing = [k for k, n in serve["launches"].items() if n <= 0]
     if missing:
         fail(f"kernels never launched on the served path: {missing}")
-    log(f"serve phase done at {time.perf_counter() - t_start:.1f} s")
+    done("serve")
     gc.collect()
     torch.cuda.empty_cache()            # DeepSeek's weights leave the card
     hybrid = hybrid_run("cuda")
     missing = [k for k, n in hybrid["launches"].items() if n <= 0]
     if missing:
         fail(f"kernels never launched on the hybrid path: {missing}")
-    log(f"hybrid phase done at {time.perf_counter() - t_start:.1f} s")
+    done("hybrid")
     gc.collect()
     torch.cuda.empty_cache()            # zamba2's weights leave the card
     part_res = partitioned_run(res)
@@ -2993,14 +3455,19 @@ def main() -> int:
                if part[k] <= 0]
     if missing:
         fail(f"kernels never launched on the partitioned path: {missing}")
-    log(f"partitioned and dense phases done at "
-        f"{time.perf_counter() - t_start:.1f} s")
+    done("partitioned and dense")
+    verify_phase(res, part_res, on_card=True)
+    done("verify")
     cal = calibrate_phase(res, part_res, card_figures(res),
                           ROOT / "chiprun_out" / "calibrate")["launches"]
     missing = [k for k in CALIBRATE_KERNELS if cal[k] <= 0]
     if missing:
         fail(f"kernels never launched in the calibrate phase: {missing}")
-    log(f"calibrate phase done at {time.perf_counter() - t_start:.1f} s")
+    done("calibrate")
+    log(f"total {time.perf_counter() - t_start:.1f} s; seconds by phase: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in phases.items())
+        + f" (the serve phase's adaptive part "
+          f"{serve['adaptive']['seconds']:.1f})")
     timing = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
               "device_ms", "host_us", "library_device_ms")
     records = []

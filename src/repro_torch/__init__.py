@@ -3,9 +3,11 @@
 Ported so far: the distributed AMG set-up and solve (``sparse``, ``amg``,
 ``core``), MoE serving of DeepSeek-V2-Lite and serving of the Mamba-2 SSM
 and Zamba2 hybrid families (``models``, ``serve``, ``configs``), the
-metrics, spans and Perfetto export (``obs``), and measurement and
-calibration (``profile``: the trace recorder and the fit of
-``MachineParams`` to measured exchanges).
+metrics, spans and Perfetto export (``obs``), measurement and
+calibration (``profile``: the trace recorder, the fit of
+``MachineParams`` to measured exchanges, and the adaptive MoE
+re-planner, which the serve engine's online refit feeds; ``runtime``:
+its ``RefitEvent``), and the static verifier (``verify``).
 The package mirrors ``repro``'s subpackages and public names, so a parity
 test can call both sides with the same arguments.  It imports ``torch`` and
 ``numpy`` only.  Host planning is numpy; vectors, plans' index arrays, ELL

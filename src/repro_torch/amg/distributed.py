@@ -50,7 +50,7 @@ from .. import resolve_device
 from ..core.cache import PlanCache, default_plan_cache
 from ..core.collectives import device_sync, time_executor
 from ..core.costmodel import LASSEN, MachineParams, plan_time
-from ..core.dense import DenseSelection, bind_dense
+from ..core.dense import DenseSelection
 from ..core.neighborhood import NeighborAlltoallV
 from ..core.plan import Topology
 from ..core.selection import SelectionReport
@@ -401,7 +401,7 @@ class DistributedHierarchy:
             value_bytes=self.value_bytes, params=self.params,
         )
         self.coarse_selection = sel
-        gather = bind_dense(plan, self.device)
+        gather = self.cache.dense_executor(plan, self.device)
 
         P_, pad = self.topo.n_procs, lv.pad
         Ag = partitioned_to_global(lv.A.part)
@@ -536,6 +536,11 @@ class DistributedHierarchy:
         return unpack_vector(lv0.A.part.offsets, x.cpu().numpy()), hist
 
     # ------------------------------------------------------- introspection
+    def bound_product(self, level: int, op: str) -> Optional[Callable]:
+        """The bound product of operator ``op`` (``"A"``, ``"R"`` or
+        ``"P"``) of ``level``, None where the level has none."""
+        return {"A": self._Amv, "R": self._Rmv, "P": self._Pmv}[op][level]
+
     def _ops(self):
         for lv in self.levels:
             for name, op in (("A", lv.A), ("R", lv.R), ("P", lv.P)):

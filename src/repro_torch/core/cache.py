@@ -28,6 +28,14 @@ counters aggregate the plan namespaces (``collective`` + ``moe_plan`` +
 Every lookup also counts into the obs registry (``plan_cache/hits``,
 ``plan_cache/misses`` and ``plan_cache/evictions``, labelled by namespace),
 which records only while ``repro_torch.obs`` is enabled.
+
+With ``REPRO_VERIFY=1`` (``repro_torch.verify.verify_enabled``, read per
+insertion) every value entering the cache is verified once, at the one
+choke point all plan producers share (``_insert``), and every new executor
+is audited against its plan where the plan is still in scope
+(:meth:`PlanCache.executor`, :meth:`PlanCache.dense_executor`); the wall
+time lands in the ``plan_cache/verify_seconds`` histogram by namespace.
+Hits are served unverified.  Verification changes no cached value.
 """
 from __future__ import annotations
 
@@ -49,6 +57,8 @@ _M_MISSES = _OBS.counter("plan_cache/misses",
                          "plan-cache misses by namespace")
 _M_EVICTIONS = _OBS.counter("plan_cache/evictions",
                             "LRU evictions by namespace")
+_H_VERIFY = _OBS.histogram("plan_cache/verify_seconds",
+                           "verify-on-insertion wall time by namespace")
 
 
 def _hash_array(h, name: str, arr: np.ndarray) -> None:
@@ -187,6 +197,14 @@ class PlanCache:
         return entry
 
     def _insert(self, store: Dict, key, value, ns: str) -> None:
+        # verification on insertion: the import is lazy (verify imports
+        # core) and the knob is read per insert, so tests can flip it
+        from ..verify import verify_cache_value, verify_enabled
+
+        if verify_enabled():
+            t0 = now()
+            verify_cache_value(ns, value)
+            _H_VERIFY.observe(now() - t0, ns=ns)
         if self.max_entries > 0 and len(store) >= self.max_entries:
             store.pop(next(iter(store)))   # least-recently used
             self.evictions += 1
@@ -236,6 +254,14 @@ class PlanCache:
         if fn is not None:
             return fn
         fn = coll.bind(device)
+        # the audit needs the collective's DevicePlan, which only this
+        # frame has next to the bound executor
+        from ..verify import audit_executor, verify_enabled
+
+        if verify_enabled():
+            t0 = now()
+            audit_executor(fn, coll.device_plan, device)
+            _H_VERIFY.observe(now() - t0, ns="executor_audit")
         self._insert(self._execs, key, fn, "executor")
         return fn
 
@@ -304,6 +330,12 @@ class PlanCache:
         if fn is not None:
             return fn
         fn = bind_dense(plan, device)
+        from ..verify import audit_dense_executor, verify_enabled
+
+        if verify_enabled():
+            t0 = now()
+            audit_dense_executor(fn, plan, device)
+            _H_VERIFY.observe(now() - t0, ns="dense_executor_audit")
         self._insert(self._dense_execs, key, fn, "dense_executor")
         return fn
 

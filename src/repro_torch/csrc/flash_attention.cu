@@ -51,6 +51,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include "kernel_attrs.cuh"
 
 #include "tile_mma.cuh"
 
@@ -585,6 +586,32 @@ int decode(const void* q, const void* k, const void* v, void* o,
 #undef REPRO_ATTN_CASE
 }
 
+// ------------------------------------------------- attributes (verify)
+
+// Every kernel of this source at its launch: kThreads a block; the
+// prefill with Prefill<E, D>::kBytes of dynamic shared memory.
+#define REPRO_ATTN_ENTRIES(E, EN, DIM)                                      \
+  {"attn_prefill_kernel<" EN "," #DIM ">",                                  \
+   (const void*)attn_prefill_kernel<E, DIM>, kThreads,                      \
+   Prefill<E, DIM>::kBytes, 1},                                             \
+  {"attn_decode_split_kernel<" EN "," #DIM ">",                             \
+   (const void*)attn_decode_split_kernel<E, DIM>, kThreads, 0, 1},          \
+  {"attn_decode_combine_kernel<" EN "," #DIM ">",                           \
+   (const void*)attn_decode_combine_kernel<E, DIM>, kThreads, 0, 1},
+#define REPRO_ATTN_BF16(DIM) REPRO_ATTN_ENTRIES(__nv_bfloat16, "bf16", DIM)
+#define REPRO_ATTN_F32(DIM) REPRO_ATTN_ENTRIES(float, "f32", DIM)
+
+const repro_attrs::KernelEntry* kernel_table(int* n) {
+  static const repro_attrs::KernelEntry table[] = {
+      REPRO_ATTN_DIMS(REPRO_ATTN_BF16) REPRO_ATTN_DIMS(REPRO_ATTN_F32)};
+  *n = (int)(sizeof(table) / sizeof(table[0]));
+  return table;
+}
+
+#undef REPRO_ATTN_F32
+#undef REPRO_ATTN_BF16
+#undef REPRO_ATTN_ENTRIES
+
 }  // namespace
 
 extern "C" {
@@ -632,3 +659,5 @@ int repro_flash_decode_f32(const void* q, const void* k, const void* v,
 }
 
 }  // extern "C"
+
+REPRO_KERNEL_ATTRIBUTES(kernel_table)

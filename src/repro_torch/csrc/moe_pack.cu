@@ -55,6 +55,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include "kernel_attrs.cuh"
 
 #include <algorithm>
 
@@ -226,6 +227,38 @@ int launch_combine(const void* buf, const int* idx, const float* w,
                                   stream);
 }
 
+// ------------------------------------------------- attributes (verify)
+
+// Every kernel of this source at its launch: K5 at kThreads; K6 at
+// kThreads with, on the staged path, kKmax groups of stage (its largest),
+// kCombineBlocksPerSm blocks an SM promised by its __launch_bounds__.
+const repro_attrs::KernelEntry* kernel_table(int* n) {
+  constexpr int kStage = kKmax * kThreads * (int)sizeof(uint4);
+  static const repro_attrs::KernelEntry table[] = {
+      {"gather_rows_kernel<16>", (const void*)gather_rows_kernel<uint4>,
+       kThreads, 0, 0},
+      {"gather_rows_kernel<4>", (const void*)gather_rows_kernel<uint32_t>,
+       kThreads, 0, 0},
+      {"gather_rows_kernel<2>", (const void*)gather_rows_kernel<uint16_t>,
+       kThreads, 0, 0},
+      {"gather_rows_kernel<1>", (const void*)gather_rows_kernel<uint8_t>,
+       kThreads, 0, 0},
+      {"combine_lanes_kernel<bf16,8>",
+       (const void*)combine_lanes_kernel<__nv_bfloat16, 8>, kThreads, kStage,
+       kCombineBlocksPerSm},
+      {"combine_lanes_kernel<bf16,1>",
+       (const void*)combine_lanes_kernel<__nv_bfloat16, 1>, kThreads, 0,
+       kCombineBlocksPerSm},
+      {"combine_lanes_kernel<f32,4>",
+       (const void*)combine_lanes_kernel<float, 4>, kThreads, kStage,
+       kCombineBlocksPerSm},
+      {"combine_lanes_kernel<f32,1>",
+       (const void*)combine_lanes_kernel<float, 1>, kThreads, 0,
+       kCombineBlocksPerSm}};
+  *n = (int)(sizeof(table) / sizeof(table[0]));
+  return table;
+}
+
 }  // namespace
 
 extern "C" {
@@ -268,3 +301,5 @@ int repro_combine_lanes_f32(const void* buf, const int* idx, const float* w,
 }
 
 }  // extern "C"
+
+REPRO_KERNEL_ATTRIBUTES(kernel_table)

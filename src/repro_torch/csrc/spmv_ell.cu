@@ -66,6 +66,7 @@
 // the plain versions round them, so the two agree bit for bit.
 
 #include <cuda_runtime.h>
+#include "kernel_attrs.cuh"
 
 #include <algorithm>
 #include <type_traits>
@@ -319,6 +320,39 @@ int launch_skip(const void* cols, const void* vals, const void* x,
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------------- attributes (verify)
+
+// Every kernel of this source at its launch's largest block: K1 at
+// kThreads, K2-K4 at 1024 threads (rows * tpr) with tpr * rows partials
+// of shared memory; __launch_bounds__(1024) promises that block an SM.
+#define REPRO_SPMV_WALK(T, TN, KT)                                          \
+  {"spmv_ell_bucket_range_kernel<" TN "," #KT ">",                          \
+   (const void*)spmv_ell_bucket_range_kernel<T, KT>, 1024,                  \
+   1024 * (int)sizeof(T), 1},                                               \
+  {"spmv_ell_bucket_skip_kernel<" TN "," #KT ">",                           \
+   (const void*)spmv_ell_bucket_skip_kernel<T, KT>, 1024,                   \
+   1024 * (int)sizeof(T), 1},
+#define REPRO_SPMV_WALKS(T, TN)                                             \
+  REPRO_SPMV_WALK(T, TN, 0) REPRO_SPMV_WALK(T, TN, 1)                       \
+  REPRO_SPMV_WALK(T, TN, 2) REPRO_SPMV_WALK(T, TN, 3)                       \
+  REPRO_SPMV_WALK(T, TN, 4) REPRO_SPMV_WALK(T, TN, 5)                       \
+  REPRO_SPMV_WALK(T, TN, 6) REPRO_SPMV_WALK(T, TN, 7)                       \
+  REPRO_SPMV_WALK(T, TN, 8)
+
+const repro_attrs::KernelEntry* kernel_table(int* n) {
+  static const repro_attrs::KernelEntry table[] = {
+      {"spmv_ell_kernel<f32>", (const void*)spmv_ell_kernel<float>,
+       kThreads, 0, 0},
+      {"spmv_ell_kernel<f64>", (const void*)spmv_ell_kernel<double>,
+       kThreads, 0, 0},
+      REPRO_SPMV_WALKS(float, "f32") REPRO_SPMV_WALKS(double, "f64")};
+  *n = (int)(sizeof(table) / sizeof(table[0]));
+  return table;
+}
+
+#undef REPRO_SPMV_WALKS
+#undef REPRO_SPMV_WALK
+
 }  // namespace
 
 // Plain C interface, loaded with ctypes.  Each function launches on the
@@ -392,3 +426,5 @@ int repro_spmv_ell_blocked_skip_f64(const void* cols, const void* vals,
 }
 
 }  // extern "C"
+
+REPRO_KERNEL_ATTRIBUTES(kernel_table)

@@ -60,6 +60,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include "kernel_attrs.cuh"
 
 #include "tile_mma.cuh"
 
@@ -378,6 +379,28 @@ int dispatch(const void* x, const float* dt, const float* A, const void* B,
   return (int)cudaErrorInvalidValue;
 }
 
+// ------------------------------------------------- attributes (verify)
+
+// Every kernel of this source at its launch: kThreads a block with
+// Smem<E, P, N>::kBytes of dynamic shared memory.
+const repro_attrs::KernelEntry* kernel_table(int* n) {
+  static const repro_attrs::KernelEntry table[] = {
+      {"ssd_scan_kernel<bf16,64,64>",
+       (const void*)ssd_scan_kernel<__nv_bfloat16, 64, 64>, kThreads,
+       Smem<__nv_bfloat16, 64, 64>::kBytes, 1},
+      {"ssd_scan_kernel<bf16,64,128>",
+       (const void*)ssd_scan_kernel<__nv_bfloat16, 64, 128>, kThreads,
+       Smem<__nv_bfloat16, 64, 128>::kBytes, 1},
+      {"ssd_scan_kernel<f32,64,64>",
+       (const void*)ssd_scan_kernel<float, 64, 64>, kThreads,
+       Smem<float, 64, 64>::kBytes, 1},
+      {"ssd_scan_kernel<f32,64,128>",
+       (const void*)ssd_scan_kernel<float, 64, 128>, kThreads,
+       Smem<float, 64, 128>::kBytes, 1}};
+  *n = (int)(sizeof(table) / sizeof(table[0]));
+  return table;
+}
+
 }  // namespace
 
 extern "C" {
@@ -404,3 +427,5 @@ int repro_ssd_scan_f32(const void* x, const float* dt, const float* A,
 }
 
 }  // extern "C"
+
+REPRO_KERNEL_ATTRIBUTES(kernel_table)

@@ -170,19 +170,25 @@ class Model:
         return x + mlp(p_l["mlp"], rms_norm(x, p_l["ln2"]), self.cfg.act), c
 
     def moe_block(self, p_l: Dict, x: torch.Tensor, pos: torch.Tensor,
-                  plan: MoEPlan, cache=None, kv_len=None):
+                  plan: MoEPlan, cache=None, kv_len=None,
+                  collect: bool = False):
         """One MLA + MoE layer (routed experts dispatched by ``plan``, plus
-        the shared experts): (x, new cache, router aux loss)."""
+        the shared experts): (x, new cache, router aux loss); with
+        ``collect=True`` also the layer's (expert_counts [e_log] f32,
+        dropped fraction), the adaptive re-planner's observation."""
         cfg = self.cfg
         a, c = mla_attention(p_l["attn"], rms_norm(x, p_l["ln1"]), pos, cfg,
                              cache=cache, kv_len=kv_len)
         x = x + a
         h = rms_norm(x, p_l["ln2"])
-        y, aux, _dropped = moe_layer(h, p_l["moe"], plan, cfg, self.mesh,
-                                     self.batch_axes,
-                                     cache=default_plan_cache())
+        out = moe_layer(h, p_l["moe"], plan, cfg, self.mesh, self.batch_axes,
+                        cache=default_plan_cache(),
+                        return_expert_counts=collect)
+        y, aux = out[0], out[1]
         if cfg.n_shared_experts:
             y = y + mlp(shared_expert_params(p_l["moe"]), h, cfg.act)
+        if collect:
+            return x + y, c, aux, (out[3], out[2])
         return x + y, c, aux
 
     def forward(self, params: Dict,

@@ -197,6 +197,59 @@ def _routing_pattern(
     return _pack_routing(eids, replicas, e_per_dev, capacity, N)
 
 
+def quantize_histogram(
+    hist, e_log: int, quantum: int = 64
+) -> Tuple[int, ...]:
+    """Normalize an expert histogram to integer counts summing ``quantum``.
+
+    Largest-remainder apportionment, ties to the lower expert id.  Two
+    histograms that differ by less than ~1/quantum in every fraction
+    quantize identically, so their routing patterns share a fingerprint
+    and the adaptive re-planner's lookup hits instead of re-planning."""
+    h = np.asarray(hist, dtype=np.float64).reshape(-1)
+    if len(h) != e_log:
+        raise ValueError(f"histogram has {len(h)} bins, expected {e_log}")
+    total = float(h.sum())
+    frac = (h / total) if total > 0 else np.full(e_log, 1.0 / e_log)
+    raw = frac * quantum
+    base = np.floor(raw).astype(np.int64)
+    short = quantum - int(base.sum())
+    if short > 0:
+        order = np.lexsort((np.arange(e_log), -(raw - base)))
+        base[order[:short]] += 1
+    return tuple(int(x) for x in base)
+
+
+@functools.lru_cache(maxsize=256)
+def _histogram_routing_pattern(
+    ep_size: int,
+    e_log: int,
+    replicas: int,
+    e_per_dev: int,
+    capacity: int,
+    top_k: int,
+    tokens_per_lane: int,
+    qhist: Tuple[int, ...],
+) -> Tuple[CommPattern, DiscoveryStats, str]:
+    """Dispatch ``CommPattern`` whose expert marginals follow a measured
+    histogram (``qhist``, from :func:`quantize_histogram`) instead of the
+    uniform router: each token draws ``top_k`` distinct experts weighted by
+    it (Gumbel top-k, lane ``p`` seeded ``100_003 + p``: deterministic
+    across calls and processes)."""
+    N, k = tokens_per_lane, top_k
+    q = np.asarray(qhist, dtype=np.float64)
+    frac = q / max(float(q.sum()), 1.0)
+    # zero-probability experts stay drawable at ~1e-12, so k distinct
+    # experts exist even for a fully collapsed histogram
+    logp = np.log(np.maximum(frac, 1e-12))
+    eids = []
+    for p in range(ep_size):
+        rng = np.random.default_rng(100_003 + p)
+        g = rng.gumbel(size=(N, e_log))
+        eids.append(np.argsort(-(logp[None, :] + g), axis=1)[:, :k])
+    return _pack_routing(eids, replicas, e_per_dev, capacity, N)
+
+
 def dispatch_pattern(
     plan: MoEPlan, tokens_per_lane: int
 ) -> Tuple[CommPattern, DiscoveryStats, str]:
@@ -285,6 +338,64 @@ def moe_plan_for(
         if mode == "auto":
             chosen, _report = select_moe_mode(
                 geom, tokens_per_lane, value_bytes, params
+            )
+        return dataclasses.replace(geom, mode=chosen, fingerprint=fp)
+
+    return cache.moe_plan(key, build)
+
+
+def moe_plan_from_histogram(
+    cfg: ArchConfig,
+    mesh: Mesh,
+    tokens_per_lane: int,
+    hist,
+    mode: str = "auto",
+    quantum: int = 64,
+    ep_over_pods: bool = True,
+    cap_factor: float = 1.25,
+    dedup_factor: Optional[float] = None,
+    params: Optional[MachineParams] = None,
+    cache=None,
+) -> MoEPlan:
+    """Cached dispatch planning over a measured expert histogram: the
+    re-planning entry point of ``profile.adapt.AdaptivePlanner``.
+
+    As :func:`moe_plan_for`, but the routing pattern, and so the
+    fingerprint keying the ``moe_plan_hist`` entry, is synthesized from the
+    quantized ``hist`` (:func:`_histogram_routing_pattern`): an unchanged
+    distribution is a cache hit, a drifted one keys (and for ``auto``
+    re-selects) a new plan.  ``mode="auto"`` needs ``params``."""
+    if mode == "auto" and params is None:
+        raise ValueError("moe_plan_from_histogram(mode='auto') needs "
+                         "MachineParams: pass params= (e.g. "
+                         "core.costmodel.LASSEN)")
+    cache = default_plan_cache() if cache is None else cache
+    geom = make_moe_plan(
+        cfg, mesh, tokens_per_lane,
+        mode=("a2a" if mode == "auto" else mode),
+        ep_over_pods=ep_over_pods, cap_factor=cap_factor,
+        dedup_factor=dedup_factor,
+    )
+    if geom.mode == "dense":
+        return geom
+    qhist = quantize_histogram(hist, geom.e_log, quantum)
+    pattern, _stats, fp = _histogram_routing_pattern(
+        geom.ep_size, geom.e_log, geom.replicas, geom.e_per_dev,
+        geom.capacity, geom.top_k, tokens_per_lane, qhist,
+    )
+    value_bytes = cfg.d_model * cfg.dtype.itemsize
+    mesh_key = (tuple(mesh.axis_names), tuple(mesh.shape))
+    key = (
+        "moe_plan_hist", mesh_key, tokens_per_lane, cfg.n_experts,
+        cfg.top_k, mode, ep_over_pods, cap_factor, dedup_factor,
+        value_bytes, params, fp,
+    )
+
+    def build() -> MoEPlan:
+        chosen = mode
+        if mode == "auto":
+            chosen, _report = _select_mode_over_pattern(
+                geom, pattern, value_bytes, params
             )
         return dataclasses.replace(geom, mode=chosen, fingerprint=fp)
 

@@ -2,10 +2,11 @@
 and the ``ssm`` and ``hybrid`` families.
 
 Ported from ``repro.models.serving`` (``_prefill_attn``, ``_decode_attn``,
-``moe_tokens_per_lane``, ``moe_plan_for_model``, ``prefill``,
-``decode_step``; ``_moe_ffn`` is :meth:`repro_torch.models.lm.Model.moe_block`,
-shared with the training forward); the other families and
-``moe_exchange_probe`` are still to port (ROADMAP Queue 1 item 6).  The
+``moe_tokens_per_lane``, ``moe_plan_for_model``, ``moe_exchange_probe``,
+``prefill``, ``decode_step`` with its pinned ``moe_plan`` and
+``return_moe_stats``; ``_moe_ffn`` is
+:meth:`repro_torch.models.lm.Model.moe_block`, shared with the training
+forward); the other families are still to port (ROADMAP Queue 1).  The
 forward is a Python loop over layers; the MoE plan is looked up once per
 call, not once per layer.
 
@@ -24,8 +25,9 @@ is given, in place, and returns them with the new SSM states.
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from . import attention
@@ -55,6 +57,44 @@ def moe_plan_for_model(model: Model, n_tokens: int, cache=None):
         cap_factor=model.moe_cap_factor, params=model.machine_params,
         cache=cache,
     )
+
+
+def moe_exchange_probe(model: Model, plan, n_tokens: int, cache=None,
+                       iters: int = 5, warmup: int = 1):
+    """Time ``plan``'s dispatch pattern as a pure exchange: (CommPlan,
+    seconds per exchange), or None when there is nothing to probe (dense
+    mode, or no plan).
+
+    The online-calibration feed of ``ServeEngine(observe=True)``: a decode
+    step's dispatch includes expert compute, so the engine now and then
+    runs the same routing pattern as a bare neighborhood exchange on the
+    rank-stacked executor (``cache.executor`` on the model's device), whose
+    samples are fit-grade.  The collective and its executor go through
+    ``cache``, so repeated probes re-plan and re-bind nothing.  The payload
+    is float32 with ``d_model * itemsize / 4`` columns, the plan's modeled
+    wire bytes a value; each call waits for the device
+    (``core.collectives.time_calls``)."""
+    from ..core.cache import default_plan_cache
+    from ..core.collectives import time_calls
+    from .moe import STRATEGY_OF_MODE, dispatch_pattern, dispatch_topology
+
+    if plan is None or plan.mode not in STRATEGY_OF_MODE:
+        return None
+    cache = cache if cache is not None else default_plan_cache()
+    pattern, _stats, _fp = dispatch_pattern(
+        plan, moe_tokens_per_lane(model, n_tokens))
+    topo = dispatch_topology(plan)
+    value_bytes = model.cfg.d_model * model.cfg.dtype.itemsize
+    strategy = STRATEGY_OF_MODE[plan.mode]
+    coll = cache.collective(pattern, topo, strategy, value_bytes)
+    fn = cache.executor(pattern, topo, model.device, strategy=strategy,
+                        value_bytes=value_bytes)
+    d = max(1, value_bytes // 4)
+    n_pad = int(pattern.n_local.max())
+    x = torch.as_tensor(
+        np.random.default_rng(0).normal(size=(topo.n_procs, n_pad, d))
+        .astype(np.float32), device=model.device)
+    return coll.plan, time_calls(fn, x, iters, warmup)
 
 
 # ---------------------------------------------------------------------------
@@ -193,8 +233,12 @@ def prefill(model: Model, params: Dict, inputs: Dict, max_len: int,
 # ---------------------------------------------------------------------------
 
 
-def _decode_moe(model: Model, params: Dict, x, cur: int,
-                caches: Tuple) -> Tuple[torch.Tensor, List]:
+def _decode_moe(model: Model, params: Dict, x, cur: int, caches: Tuple,
+                moe_plan=None, stats: Optional[List] = None
+                ) -> Tuple[torch.Tensor, List]:
+    """``moe_plan`` pins the dispatch plan (else the cached per-shape one);
+    with ``stats`` (a list) each MoE layer appends its (expert_counts,
+    dropped)."""
     cfg = model.cfg
     B = x.shape[0]
     pos = torch.full((B, 1), cur, dtype=torch.int32, device=x.device)
@@ -204,11 +248,14 @@ def _decode_moe(model: Model, params: Dict, x, cur: int,
         x, ckv = model.dense_layer(_stack_slice(params["dense0"], i), x, pos,
                                    cache=caches[i]["ckv"], kv_len=cur)
         new_caches.append({"ckv": ckv})
-    plan = moe_plan_for_model(model, B)
+    plan = moe_plan if moe_plan is not None else moe_plan_for_model(model, B)
     for i in range(cfg.n_layers - n0):
-        x, ckv, _ = model.moe_block(_stack_slice(params["blocks"], i), x,
-                                    pos, plan, cache=caches[n0 + i]["ckv"],
-                                    kv_len=cur)
+        out = model.moe_block(_stack_slice(params["blocks"], i), x, pos,
+                              plan, cache=caches[n0 + i]["ckv"], kv_len=cur,
+                              collect=stats is not None)
+        x, ckv = out[0], out[1]
+        if stats is not None:
+            stats.append(out[3])
         new_caches.append({"ckv": ckv})
     return x, new_caches
 
@@ -243,14 +290,23 @@ def _decode_hybrid(model: Model, params: Dict, x, cur: int,
 
 
 def decode_step(model: Model, params: Dict, inputs: Dict,
-                caches: Tuple, cur_len: int):
+                caches: Tuple, cur_len: int, moe_plan=None,
+                return_moe_stats: bool = False):
     """One-token step.  ``inputs``: {"tokens": [B, 1]}; ``cur_len``: tokens
-    already in the caches.  Returns (logits [B, V], caches)."""
+    already in the caches.  Returns (logits [B, V], caches); with
+    ``return_moe_stats=True`` also a stats dict: ``expert_counts``, the
+    step's routing histogram summed over the MoE layers ([e_log] f32, the
+    adaptive re-planner's observation), and ``dropped``, the mean capacity
+    drop fraction over them (zeros for the families without MoE layers).
+    ``moe_plan`` pins a dispatch plan (adaptive serving) instead of the
+    per-shape cached one."""
     cfg = model.cfg
     cur = int(cur_len)
     x = model._embed_in(params, inputs)
+    layer_stats: Optional[List] = [] if return_moe_stats else None
     if cfg.family == "moe":
-        x, new_caches = _decode_moe(model, params, x, cur, caches)
+        x, new_caches = _decode_moe(model, params, x, cur, caches,
+                                    moe_plan=moe_plan, stats=layer_stats)
     elif cfg.family == "ssm":
         new_caches = []
         for i in range(cfg.n_layers):
@@ -260,4 +316,14 @@ def decode_step(model: Model, params: Dict, inputs: Dict,
     else:
         x, new_caches = _decode_hybrid(model, params, x, cur, caches)
     logits = model._logits(params, rms_norm(x, params["final_norm"]))
+    if return_moe_stats:
+        if layer_stats:
+            counts = torch.stack([c for c, _ in layer_stats]).sum(0)
+            dropped = torch.stack([d for _, d in layer_stats]).mean()
+        else:
+            counts = torch.zeros((max(1, cfg.n_experts),),
+                                 dtype=torch.float32, device=x.device)
+            dropped = torch.zeros((), dtype=torch.float32, device=x.device)
+        return logits[:, 0], tuple(new_caches), {
+            "expert_counts": counts, "dropped": dropped}
     return logits[:, 0], tuple(new_caches)

@@ -11,11 +11,9 @@ must *observe* the actual machine, arXiv 2309.07337):
   ``MachineParams`` from a trace (the numeric core lives in
   ``core.costmodel.fit_machine_params``), goodness-of-fit reporting,
   round-trip synthesis, and shipped-vs-fitted selection comparison.
-
-``repro``'s adaptive re-planner (``AdaptivePlanner``, ``ReplanEvent`` in
-``repro.profile.adapt``) is not ported yet: it needs the adaptive MoE
-pieces (``quantize_histogram``, ``moe_plan_from_histogram``) in
-``models.moe`` first.
+* :mod:`.adapt`: :class:`AdaptivePlanner`, which re-selects the MoE
+  dispatch transport when the measured routing histograms drift
+  (:class:`ReplanEvent`).
 """
 from .trace import ExchangeSample, HistogramSample, StepSample, TraceRecorder
 from .calibrate import (
@@ -26,9 +24,10 @@ from .calibrate import (
     selection_flips,
     synthesize_trace,
 )
+from .adapt import AdaptivePlanner, ReplanEvent
 
 __all__ = [
     "ExchangeSample", "HistogramSample", "StepSample", "TraceRecorder",
     "CalibrationResult", "fit_trace", "probe_plans", "rate_probe_patterns",
-    "selection_flips", "synthesize_trace",
+    "selection_flips", "synthesize_trace", "AdaptivePlanner", "ReplanEvent",
 ]

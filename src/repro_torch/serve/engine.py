@@ -1,16 +1,40 @@
 """Batched serving engine: request queue -> fixed-slot batch -> decode loop.
 
-Ported from ``repro.serve.engine`` (``Request``, ``ServeEngine`` with
+Ported from ``repro.serve.engine``: ``Request``, ``ServeEngine`` with
 ``submit``, ``step``, ``run_until_drained``, the pre-warmed decode and
-worst-case prefill dispatch plans, and the ``serve/request_seconds``,
-``serve/steps`` and ``serve/tokens`` metrics).  The adaptive re-planner,
-elastic resizing, the observe/refit loop and ``verify`` are still to port.
+worst-case prefill dispatch plans, the adaptive re-planner
+(``adaptive=True``), the observe / refit loop (``observe=True``),
+``verify``, the ``serve/admit``, ``serve/prefill`` and
+``serve/decode_step`` spans, the ``serve/replan`` and ``serve/refit``
+events, and the ``serve/request_seconds``, ``serve/steps`` and
+``serve/tokens`` metrics.  Elastic serving (``elastic=`` / ``resize``) is
+still to port, with ``runtime.elastic``, ``straggler`` and ``checkpoint``
+(ROADMAP Queue 1).
 
 Static batch slots: requests are admitted into free slots and the whole
 batch prefills together (each active slot re-presents its full history as
 its prompt, right-aligned, so every slot's cache is exact after admission);
 then the batch decodes one token per slot per step, and finished slots are
 recycled.  Greedy sampling (argmax).
+
+Adaptive re-planning (``adaptive=True``, moe family): every decode step
+returns its measured routing histogram (``serving.decode_step(...,
+return_moe_stats=True)``), which feeds a
+:class:`~repro_torch.profile.adapt.AdaptivePlanner`; on a drift
+re-selection the engine pins the new plan for its decode steps
+(:meth:`ServeEngine._decode` reads ``moe_plan`` at every step; the
+dispatch executors are cached per geometry by the plan cache, so a return
+to a seen plan builds nothing).
+
+Observability (``observe=True``): the engine enables the process-wide
+``repro_torch.obs`` layer with a ``TraceRecorder`` attached, and every
+``refit_every`` decode steps runs ``serving.moe_exchange_probe`` (the
+decode dispatch pattern as a bare exchange on the card), bridges the pure
+sample into the recorder through a span and re-fits ``MachineParams``
+(``profile.calibrate.fit_trace``), recorded as
+:class:`~repro_torch.runtime.controller.RefitEvent`; the fitted params
+price the planner's later re-selections.  Spans and refits never touch the
+decode numerics.
 """
 from __future__ import annotations
 
@@ -24,6 +48,7 @@ from ..core.cache import default_plan_cache
 from ..models import serving
 from ..models.lm import Model
 from ..obs import default_obs, now
+from ..profile.adapt import AdaptivePlanner, ReplanEvent
 
 _OBS = default_obs()
 _H_REQUEST = _OBS.histogram("serve/request_seconds",
@@ -43,11 +68,33 @@ class Request:
 
 class ServeEngine:
     def __init__(self, model: Model, params, batch_slots: int = 4,
-                 max_len: int = 256):
+                 max_len: int = 256, adaptive: bool = False,
+                 drift_threshold: float = 0.3, drift_warmup: int = 2,
+                 tracer=None, observe: bool = False, refit_every: int = 32):
         self.model = model
         self.params = params
         self.B = batch_slots
         self.max_len = max_len
+        # online calibration (observe=True): every `refit_every` decode
+        # steps, probe the dispatch exchange and refit MachineParams from
+        # the tracer's pure samples; the fitted params land here and on the
+        # adaptive planner
+        self.observe = observe
+        self.refit_every = int(refit_every)
+        self.refit_events: List[object] = []
+        self.machine_params = None      # last fitted MachineParams
+        self._step_count = 0
+        if observe:
+            if tracer is None:
+                from ..profile.trace import TraceRecorder
+
+                tracer = TraceRecorder()
+            # enables the process-wide obs layer and attaches the tracer as
+            # the span bridge's target
+            _OBS.enable(tracer=tracer)
+        self._tracer = tracer
+        self._drift_threshold = drift_threshold
+        self._drift_warmup = drift_warmup
         self.slots: List[Optional[Request]] = [None] * batch_slots
         self.queue: List[Request] = []
         self.caches = None
@@ -62,11 +109,57 @@ class ServeEngine:
         # nothing.
         self.plan_cache = default_plan_cache()
         self.moe_plan = self.moe_prefill_plan = None
+        self.planner: Optional[AdaptivePlanner] = None
+        self.adaptive = adaptive and model.cfg.family == "moe"
         if model.cfg.family == "moe":
             self.moe_plan = serving.moe_plan_for_model(
                 model, self.B, cache=self.plan_cache)
             self.moe_prefill_plan = serving.moe_plan_for_model(
                 model, self.B * self.max_len, cache=self.plan_cache)
+        if self.adaptive:
+            self.planner = self._make_planner()
+
+    def verify(self) -> Dict[str, int]:
+        """Statically verify the engine's live MoE dispatch plans.
+
+        Runs ``repro_torch.verify``'s geometry and token-conservation
+        checks over the decode-step and worst-case prefill plans (families
+        without MoE dispatch verify trivially).  Raises
+        :class:`repro_torch.verify.VerifyError` with a rank / slot
+        diagnostic on the first violated invariant; returns check counts.
+        Independent of ``REPRO_VERIFY``: calling it is the opt-in."""
+        from ..verify import verify_moe_dispatch
+
+        counts = {"moe_plans": 0}
+        for plan, n_tokens in (
+            (self.moe_plan, self.B),
+            (self.moe_prefill_plan, self.B * self.max_len),
+        ):
+            if plan is None:
+                continue
+            verify_moe_dispatch(
+                plan, serving.moe_tokens_per_lane(self.model, n_tokens))
+            counts["moe_plans"] += 1
+        return counts
+
+    def _make_planner(self) -> AdaptivePlanner:
+        return AdaptivePlanner(
+            cfg=self.model.cfg,
+            mesh=self.model.mesh,
+            tokens_per_lane=serving.moe_tokens_per_lane(self.model, self.B),
+            plan=self.moe_plan,
+            threshold=self._drift_threshold,
+            warmup=self._drift_warmup,
+            # a pinned transport stays pinned: re-plans re-fingerprint
+            # under the measured histogram but keep the mode; only
+            # moe_mode="auto" lets drift migrate the transport
+            mode=self.model.moe_mode,
+            ep_over_pods=self.model.ep_over_pods,
+            cap_factor=self.model.moe_cap_factor,
+            params=self.model.machine_params,
+            cache=self.plan_cache,
+            tracer=self._tracer,
+        )
 
     def _prefill(self, params, inputs):
         return serving.prefill(self.model, params, inputs,
@@ -74,8 +167,18 @@ class ServeEngine:
                                moe_plan=self.moe_prefill_plan)
 
     def _decode(self, params, inputs, caches, cur_len):
+        """One decode step.  Adaptive: the current ``moe_plan`` is pinned
+        and the step returns its MoE stats too."""
+        if self.adaptive:
+            return serving.decode_step(self.model, params, inputs, caches,
+                                       cur_len, moe_plan=self.moe_plan,
+                                       return_moe_stats=True)
         return serving.decode_step(self.model, params, inputs, caches,
                                    cur_len)
+
+    @property
+    def replan_events(self) -> List[ReplanEvent]:
+        return self.planner.events if self.planner is not None else []
 
     def submit(self, req: Request) -> None:
         self.queue.append(req)
@@ -106,9 +209,10 @@ class ServeEngine:
         toks = np.zeros((self.B, T), np.int32)
         for i, x in enumerate(seqs):
             toks[i, T - len(x):] = x  # right-align so the last token is real
-        logits, self.caches = self._prefill(
-            self.params,
-            {"tokens": torch.as_tensor(toks, device=self.model.device)})
+        with _OBS.span("serve/prefill", tokens=self.B * T, seq_len=T):
+            logits, self.caches = self._prefill(
+                self.params,
+                {"tokens": torch.as_tensor(toks, device=self.model.device)})
         self.cur_len = T
         self._next_tok = torch.argmax(logits, dim=-1).to(
             torch.int32).cpu().numpy()[:, None]
@@ -117,9 +221,11 @@ class ServeEngine:
         """One engine step: admit if possible, then decode one token for the
         active batch.  Returns the requests completed this step."""
         finished: List[Request] = []
+        self._step_count += 1
         _C_STEPS.inc()
         if any(s is None for s in self.slots) and self.queue:
-            self._admit()
+            with _OBS.span("serve/admit", queued=len(self.queue)):
+                self._admit()
         if self.caches is None:
             return finished
         active = [i for i, s in enumerate(self.slots) if s is not None]
@@ -127,14 +233,21 @@ class ServeEngine:
             return finished
         for i in active:
             self.slots[i].generated.append(int(self._next_tok[i, 0]))
-        logits, self.caches = self._decode(
-            self.params,
-            {"tokens": torch.as_tensor(self._next_tok,
-                                       device=self.model.device)},
-            self.caches, self.cur_len)
-        self.cur_len += 1
-        self._next_tok = torch.argmax(logits, dim=-1).to(
-            torch.int32).cpu().numpy()[:, None]
+        with _OBS.span("serve/decode_step", step=self._step_count,
+                       cur_len=self.cur_len, active=len(active)):
+            out = self._decode(
+                self.params,
+                {"tokens": torch.as_tensor(self._next_tok,
+                                           device=self.model.device)},
+                self.caches, self.cur_len)
+            if self.adaptive:
+                logits, self.caches, moe_stats = out
+                self._observe_moe(moe_stats)
+            else:
+                logits, self.caches = out
+            self.cur_len += 1
+            self._next_tok = torch.argmax(logits, dim=-1).to(
+                torch.int32).cpu().numpy()[:, None]
         _C_TOKENS.inc(len(active))
         for i in active:
             s = self.slots[i]
@@ -146,7 +259,78 @@ class ServeEngine:
                 t_admit = self._admit_times.pop(s.rid, None)
                 if t_admit is not None:
                     _H_REQUEST.observe(now() - t_admit)
+        if (self.observe and self.refit_every > 0
+                and self._step_count % self.refit_every == 0):
+            self._refit()
         return finished
+
+    def _observe_moe(self, moe_stats) -> Optional[ReplanEvent]:
+        """Feed one decode step's measured routing histogram to the
+        adaptive planner; on a drift re-selection, pin the new plan for the
+        decode steps that follow."""
+        event = self.planner.observe(
+            moe_stats["expert_counts"].detach().to(torch.float64)
+            .cpu().numpy())
+        if event is not None:
+            self.moe_plan = self.planner.plan
+            _OBS.event("serve/replan", step=event.step,
+                       drift=float(event.drift), old_mode=event.old_mode,
+                       new_mode=event.new_mode)
+        return event
+
+    def _refit(self):
+        """Online re-calibration: probe the live decode dispatch pattern as
+        a bare exchange (no expert compute, so the sample is pure), bridge
+        it into the attached tracer through a span, and re-fit
+        ``MachineParams`` from every pure sample recorded so far.  Decode
+        numerics are untouched: the probe runs on throwaway data and only
+        ``machine_params`` and the planner's cost model change.  Returns the
+        :class:`~repro_torch.runtime.controller.RefitEvent`, or ``None``
+        when there is no dispatch to probe or the fit did not converge."""
+        if self.moe_plan is None or self._tracer is None:
+            return None
+        from ..profile.calibrate import fit_trace
+        from ..runtime.controller import RefitEvent
+
+        with _OBS.span("serve/refit", step=self._step_count) as sp:
+            probed = serving.moe_exchange_probe(
+                self.model, self.moe_plan, self.B, cache=self.plan_cache)
+            if probed is not None:
+                plan, secs = probed
+                # closing this span bridges (plan, secs) into the tracer as
+                # a pure-exchange sample before fit_trace reads the trace
+                with _OBS.span("serve/exchange_probe") as psp:
+                    psp.set(plan=plan, pure_exchange=True, seconds=secs)
+            ref = self.machine_params
+            if ref is None and self.planner is not None:
+                ref = self.planner.params
+            kw = {} if ref is None else {"ref": ref}
+            try:
+                res = fit_trace(self._tracer, name="online-refit", **kw)
+            except ValueError:
+                sp.set(fitted=False, why="no pure samples")
+                return None
+            if not res.converged:
+                sp.set(fitted=False, why="fit did not converge")
+                return None
+            self.machine_params = res.params
+            if self.planner is not None:
+                # later drift re-selections price transports under the
+                # measured rates
+                self.planner.params = res.params
+            event = RefitEvent(
+                step=self._step_count,
+                params_name=res.params.name,
+                rel_rmse=float(res.gof.get("rel_rmse", float("nan"))),
+                n_samples=int(res.n_samples),
+            )
+            self.refit_events.append(event)
+            sp.set(fitted=True, params_name=event.params_name,
+                   rel_rmse=event.rel_rmse, n_samples=event.n_samples)
+            _OBS.event("serve/refit", step=event.step,
+                       params_name=event.params_name,
+                       rel_rmse=event.rel_rmse, n_samples=event.n_samples)
+        return event
 
     def run_until_drained(self, max_steps: int = 10_000) -> List[Request]:
         done: List[Request] = []

@@ -598,7 +598,8 @@ def make_distributed_spmv(
     schedule.  No-ghost operators ignore the flag.
 
     The returned function carries ``kernels``: the names of the kernels it
-    launches, in order.
+    launches, in order; a blocked one also ``operands``, the bucket-major
+    ``(cols, vals)`` on ``device`` that K2-K4 read.
     """
     if ell.ghost_pad and exchange is None:
         raise ValueError("operator has ghost columns: exchange required")
@@ -704,6 +705,7 @@ def _make_distributed_spmv_blocked(
             "spmv_ell_blocked_skip" if sk is not None
             else "spmv_ell_blocked_partial" for sk in (lskip, gskip)
         )
+        spmv_fn.operands = (cols, vals)
         return spmv_fn
 
     skip = skip_map()
@@ -723,6 +725,7 @@ def _make_distributed_spmv_blocked(
 
     spmv_fn.kernels = ("spmv_ell_blocked_skip" if skip is not None
                        else "spmv_ell_blocked",)
+    spmv_fn.operands = (cols, vals)
     return spmv_fn
 
 

@@ -57,7 +57,12 @@ def test_port_imports_no_jax_and_no_reference_package():
                 "repro_torch.kernels.ssd_scan.cuda",
                 "repro_torch.obs.metrics", "repro_torch.obs.export",
                 "repro_torch.profile.trace",
-                "repro_torch.profile.calibrate"):
+                "repro_torch.profile.calibrate",
+                "repro_torch.profile.adapt",
+                "repro_torch.runtime.controller",
+                "repro_torch.verify.invariants",
+                "repro_torch.verify.executor_audit",
+                "repro_torch.verify.kernel_budget"):
         assert mod in report["imported"]
     assert "chip_smoke" in report["loaded"]
     assert [m for m in report["loaded"] if _reference(m)] == []

@@ -37,9 +37,9 @@ def _chip_smoke():
 
 def test_chip_smoke_phases_run_on_cpu():
     """Every AMG phase, the partitioned setup and solve (levels against the
-    host hierarchy, the coarse allgatherv in every mode, the warm start)
-    and the dense executor (every collective x variant x count set bitwise
-    equal to ``execute_numpy``) included."""
+    host hierarchy, the coarse allgatherv in every mode, the warm start),
+    the dense executor (every collective x variant x count set bitwise
+    equal to ``execute_numpy``) and the verify phase included."""
     chip_smoke = _chip_smoke()
     res = chip_smoke.run("cpu", rows=4096, block_cols=16, v_cycles=2)
     assert set(res["kernels"]) == {
@@ -68,6 +68,26 @@ def test_chip_smoke_phases_run_on_cpu():
     assert len(res["dense"]) == 3 * 7      # count sets x (3 + 2 + 2) variants
     assert {r["counts"] for r in res["dense"]} == {"coarsest", "even",
                                                    "ragged"}
+    # the verify phase: the three hierarchies, the set-up verified on
+    # insertion, the stand-in kernel attributes, five planted faults
+    ver = chip_smoke.verify_phase(res, res, on_card=False)
+    assert set(ver["hierarchies"]) == {"flat", "blocked", "partitioned"}
+    n_levels = len(res["host"]["h"].levels)
+    for rec in ver["hierarchies"].values():
+        assert rec["counts"]["levels"] == n_levels
+        assert rec["counts"]["kernel_budgets"] == \
+            rec["counts"]["partitions"] >= n_levels
+    by_ns = ver["insertion"]["by_ns"]
+    for ns in ("collective", "executor_audit", "dense_plan",
+               "dense_executor_audit"):
+        assert by_ns[ns][0] >= 1
+    assert by_ns["collective"][0] == by_ns["executor_audit"][0]
+    assert set(ver["planted"]) == {"moved_nonzero", "dropped_bucket",
+                                   "swapped_scatter", "foreign_plan",
+                                   "k7_smem"}
+    assert ver["planted"]["moved_nonzero"]["rank"] == 0
+    assert "bucket" in ver["planted"]["dropped_bucket"]
+    assert "kernel" in ver["planted"]["k7_smem"]
 
 
 def test_chip_smoke_calibrate_phase_runs_on_cpu(tmp_path):
@@ -244,8 +264,9 @@ def test_chip_smoke_serve_phase_runs_on_cpu():
     serves all requests, the plain-version replay of the oracle's modes and
     the ample-capacity modes agree, the replay refuses all four planted
     faults (K6's last weight, K6 reading every lane's rows from lane 0,
-    K7's q_offset, K7's decode combine without its last key split), and
-    every K5-K7 path call and edge case is checked."""
+    K7's q_offset, K7's decode combine without its last key split), every
+    K5-K7 path call and edge case is checked, and the adaptive engine
+    re-plans once after its routers are zeroed."""
     chip_smoke = _chip_smoke()
     res = chip_smoke.serve_run("cpu", reduced_config=True)
     assert set(res["modes"]) == set(chip_smoke.SERVE_MODES)
@@ -270,6 +291,15 @@ def test_chip_smoke_serve_phase_runs_on_cpu():
         assert rec["bound_ms"] > 0.0 and "decode" in rec
     assert all(n == 0 for n in res["launches"].values())   # no card
     assert all(n == 0 for n in res["cuda_launches"].values())
+    # the adaptive phase: one re-plan after the zeroed router, the decode
+    # steps after it equal to their plain replay, converged refits
+    ada = res["adaptive"]
+    assert ada["drift"] > chip_smoke.ADAPT_DRIFT_MIN
+    assert ada["new_mode"] in ("a2a", "hier", "hier_dedup")
+    assert ada["oracle_rel_err"] == 0.0        # the plain version itself
+    assert ada["refits"] and ada["fitted"]["name"] == "online-refit"
+    from repro_torch.obs import default_obs
+    assert not default_obs().enabled and default_obs().tracer is None
 
 
 def test_chip_smoke_hybrid_phase_runs_on_cpu():
