@@ -53,7 +53,15 @@ any phase fails:
    to its replay through the plain K5-K7 under the new plan (logits within
    2^-5; K5-K7 must launch); at least one converged ``RefitEvent`` must set
    the planner's params; ``engine.verify()`` passes before and after and
-   refuses a planted broken plan; the router is restored;
+   refuses a planted broken plan; the router is restored; then the elastic
+   engine (``ServeEngine(elastic=True)``, :func:`elastic_serve_phase`): 4
+   decode steps on the 8 lanes, ``resize(4)`` (geometry (data 1, model 4),
+   no weight tensor moved), 4 more, held to a cold 4-lane engine on the
+   same weight tensors (greedy tokens identical, final logits within
+   2^-5), every engine call after the resize replayed through the plain
+   K5-K7, K5-K7 calls per decode step on 4 lanes beside 8 lanes', a warm
+   ``resize(8)`` back, and a planted fault (one slot's last generated token
+   dropped before the resume) that must be refused;
 6. hybrid serve: draws zamba2-7b at full width and depth in bf16 on the
    card (seeded) and serves six requests through ``ServeEngine``, counting
    K7 / K8 calls and CUDA launches per prefill and decode step; holds
@@ -87,7 +95,20 @@ any phase fails:
    nonzero, a bucket dropped from K4's map, a swapped scatter index, an
    executor audited against a foreign plan, K7 over the shared-memory
    limit);
-9. calibrate, last (no profiler): times the rate probes
+9. elastic (:func:`elastic_phase`): the paper problem flat/off and
+   blocked/off, each in a fresh ``PlanCache``: 3 V-cycles on 8 ranks, a
+   heartbeat ``repartition`` to 4 (cold), 3 more from the 8-rank iterate
+   (within 1e-12 of a cold 4-rank solve of 6), a grow-back to 8 that must
+   re-plan and re-bind nothing (its solve within 1e-10 of the cold 8-rank
+   one, ``VCYCLE_LAUNCHES`` a V-cycle), the re-plan seconds cold and
+   warm; on flat/off also the checkpoint (the 8-rank iterate and a bf16
+   DeepSeek ``w_gate`` saved asynchronously and restored bitwise; the
+   resume on 4 ranks bitwise the shrink's; a flipped byte and a short
+   template refused), the injected straggler (``ElasticController``: one
+   rebalance of host 2 with a ``straggler-refit``, the rebalanced solve
+   below 1e-8) and two planted faults (a grow-back through a fresh cache
+   reads cold; a resume from the 8-rank layout misses 1e-12);
+10. calibrate, last (no profiler): times the rate probes
    (``profile.probe_plans`` on ``Topology(8, 4)``, 16,384 values a
    message, every strategy), the paper problem's exchanges
    (``measure_exchange_seconds``), its SpMVs flat/off and blocked/off
@@ -108,12 +129,13 @@ any phase fails:
    fit and the card's own figures (:func:`card_figures`) against the host
    history, each level's choices beside ``LASSEN``'s and beside the faster
    measured SpMV;
-10. checks that each path launched each of its kernels (the AMG solves
+11. checks that each path launched each of its kernels (the AMG solves
    the launches per V-cycle of ``VCYCLE_LAUNCHES``, the partitioned solve
    K2 and K4, the calibrate phase K1, K2 and K4), and prints one JSON
    line with every kernel's record: calls (``launches``) and
    ``cuda_launches`` on the main path (K1-K4 also
-   ``partitioned_launches`` and ``calibrate_launches``), ``ms`` by CUDA events,
+   ``partitioned_launches`` and ``calibrate_launches``; every kernel its
+   ``elastic_launches``, K1, K2, K4 and K5-K7 above 0), ``ms`` by CUDA events,
    ``device_ms`` and ``host_us`` (:func:`device_times`), bound, plain and
    library times.
 
@@ -1421,6 +1443,304 @@ def dense_phase(coarse_counts, device, on_card: bool,
     return rows
 
 
+# --------------------------------------------------------- elastic phase
+ELASTIC_CONFIGS = (("flat", "off"), ("blocked", "off"))
+ELASTIC_KERNELS = ("spmv_ell", "spmv_ell_blocked", "spmv_ell_blocked_skip")
+ELASTIC_SHRINK_TO = 4                # ranks left after the heartbeat
+ELASTIC_K, ELASTIC_M = 3, 3          # V-cycles before and after a resize
+ELASTIC_SHRINK_TOL = 1e-12           # resumed vs cold: the reference's bar
+ELASTIC_GROW_TOL = 1e-10             # grown-back vs cold, the same
+STRAGGLER_HOST, STRAGGLER_SLOW = 2, 3.0
+STRAGGLER_STEPS, STRAGGLER_PATIENCE, STRAGGLER_COOLDOWN = 24, 3, 8
+STRAGGLER_TOL, STRAGGLER_MAX_ITERS, STRAGGLER_RESID = 1e-8, 100, 1e-6
+# one DeepSeek-V2-Lite layer's expert gate, the checkpoint's bf16 leaf
+CKPT_BF16_SHAPE = (64, 2048, 1408)
+
+
+def max_rel(got, want) -> float:
+    import numpy as np
+
+    return float(np.abs(got - want).max()
+                 / max(float(np.abs(want).max()), 1e-300))
+
+
+def elastic_solve(dh, b, iters: int, x0=None):
+    """``iters`` V-cycles of ``dh`` from ``x0``; (x, the K1-K4 launches
+    they made)."""
+    from repro_torch.kernels import LAUNCHES
+
+    before = dict(LAUNCHES)
+    x, _ = dh.solve(b, tol=0.0, max_iters=iters, x0=x0)
+    return x, {k: LAUNCHES[k] - before[k] for k in REPLACES
+               if LAUNCHES[k] > before[k]}
+
+
+def elastic_checkpoint(mgr, x_mid, step: int, device, resume,
+                       bf16_shape=CKPT_BF16_SHAPE) -> dict:
+    """The checkpoint part: ``x_mid`` saved asynchronously, restored into a
+    template and resumed through ``resume`` (must give the same iterate
+    bit for bit); one DeepSeek layer's bf16 ``w_gate`` saved and restored
+    bitwise; a flipped byte must raise ``IOError`` and a template with one
+    leaf too few ``ValueError``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.runtime import restore_checkpoint
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(3)
+    w_gate = torch.randn(bf16_shape, generator=gen, device=device,
+                         dtype=torch.float32).to(torch.bfloat16)
+    mgr.save(step, {"x": torch.as_tensor(x_mid, device=device),
+                    "w_gate": w_gate})
+    template = {"x": torch.zeros(x_mid.shape, dtype=torch.float64,
+                                 device=device),
+                "w_gate": torch.empty_like(w_gate)}
+    got_step, tree = mgr.restore_latest(template)
+    secs = time.perf_counter() - t0
+    if got_step != step or tree["x"].device != template["x"].device:
+        fail(f"checkpoint: restored step {got_step} on {tree['x'].device}")
+    if not torch.equal(tree["w_gate"], w_gate):
+        fail("checkpoint: the bf16 w_gate is not restored bitwise")
+    x_back = tree["x"].cpu().numpy()
+    if not np.array_equal(x_back, x_mid):
+        fail("checkpoint: the iterate is not restored bitwise")
+    out = dict(seconds=secs, bytes=int(w_gate.numel() * 2 + x_mid.nbytes),
+               resumed=resume(x_back), planted={})
+    path = Path(mgr.dir) / f"step_{step:09d}"
+    victim = path / "leaf_00001.bin"       # "x": the keys sort w_gate, x
+    raw = bytearray(victim.read_bytes())
+    raw[len(raw) // 2] ^= 0xFF
+    victim.write_bytes(bytes(raw))
+    for name, tmpl, err in (("a flipped byte", template, IOError),
+                            ("a template one leaf short",
+                             {"x": template["x"]}, ValueError)):
+        try:
+            restore_checkpoint(mgr.dir, tmpl)
+        except err as e:
+            out["planted"][name] = f"{type(e).__name__}: {e}"
+            log(f"checkpoint refuses a planted fault, {name}: "
+                f"{out['planted'][name]}")
+        else:
+            fail(f"checkpoint: restored through {name}")
+    del w_gate, tree, template
+    return out
+
+
+def straggler_part(dh, h, b, cache, on_card: bool) -> dict:
+    """The injected straggler on an 8-rank flat hierarchy: per-level
+    exchange samples into a ``TraceRecorder``, then 24 synthetic step-time
+    vectors (host 2 at 3x with 1 % jitter, as the reference's program) into
+    an ``ElasticController``: exactly one rebalance, host 2 with the fewest
+    fine-level rows, a converged refit, and the rebalanced solve below
+    1e-8 with a host residual below 1e-6."""
+    import numpy as np
+
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.profile import TraceRecorder
+    from repro_torch.runtime import ElasticController, StragglerConfig
+
+    tracer = TraceRecorder()
+    t0 = time.perf_counter()
+    dh.measure_exchange_seconds(iters=2, warmup=1, tracer=tracer)
+    ctrl = ElasticController(
+        N_PROCS, cache=cache, tracer=tracer,
+        straggler_cfg=StragglerConfig(patience=STRAGGLER_PATIENCE),
+        cooldown=STRAGGLER_COOLDOWN)
+    base = np.full(N_PROCS, 0.010)
+    events = []
+    for t in range(STRAGGLER_STEPS):
+        times = base.copy()
+        if not events:
+            times[STRAGGLER_HOST] *= STRAGGLER_SLOW
+        times *= 1.0 + 0.01 * np.sin(t)
+        flagged = ctrl.observe_step_times(times)
+        if flagged:
+            if flagged != [STRAGGLER_HOST]:
+                fail(f"straggler: flagged {flagged}")
+            dh, ev = ctrl.mitigate_hierarchy(dh, flagged)
+            events.append(ev)
+            log(f"straggler: {ev}; {ev.resize}")
+    if len(ctrl.rebalance_events) != 1 or len(events) != 1:
+        fail(f"straggler: {len(ctrl.rebalance_events)} rebalance events")
+    ev = events[0]
+    rows = np.diff(dh.levels[0].A.part.offsets)
+    log(f"straggler: fine-level rows a rank after the rebalance {rows}")
+    if not (rows[STRAGGLER_HOST] == rows.min()
+            and rows[STRAGGLER_HOST] < rows.max()):
+        fail(f"straggler: host {STRAGGLER_HOST} does not hold the fewest "
+             f"rows: {rows}")
+    if not (ev.refit and ev.params_name == "straggler-refit"
+            and dh.params.name == "straggler-refit"):
+        fail(f"straggler: no refit ({ev})")
+    before = dict(LAUNCHES)
+    x, hist = dh.solve(b, tol=STRAGGLER_TOL, max_iters=STRAGGLER_MAX_ITERS)
+    if on_card and LAUNCHES["spmv_ell"] <= before["spmv_ell"]:
+        fail("straggler: K1 not launched by the rebalanced solve")
+    A = h.levels[0].A
+    resid = float(np.linalg.norm(b - A.matvec(x)) / np.linalg.norm(b))
+    log(f"straggler: the rebalanced hierarchy ({dh.params.name}, "
+        f"rel_rmse {ev.rel_rmse:.3f}) reaches {hist[-1]:.3e} in "
+        f"{len(hist)} V-cycles; host ||b - A x|| / ||b|| {resid:.3e}; "
+        f"strategies {[lv.A.strategy for lv in dh.levels]}")
+    if not (hist[-1] < STRAGGLER_TOL and resid < STRAGGLER_RESID):
+        fail(f"straggler: the rebalanced solve ends at {hist[-1]:.3e}, "
+             f"residual {resid:.3e}")
+    return dict(event=str(ev), resize=str(ev.resize), rows=rows.tolist(),
+                rel_rmse=ev.rel_rmse, iters=len(hist), final=hist[-1],
+                resid=resid, seconds=time.perf_counter() - t0)
+
+
+def elastic_phase(amg: dict, on_card: bool, out_dir) -> dict:
+    """The elastic runtime on the paper problem (the AMG phases' host
+    hierarchy and right-hand side), float64, ``auto`` under ``LASSEN``,
+    each configuration in its own fresh ``PlanCache`` (the earlier phases
+    filled the default one with this hierarchy's 8-rank patterns).
+
+    Flat/off and blocked/off: 3 V-cycles on 8 ranks, a heartbeat shrink to
+    4 (``repartition``: cold), 3 more V-cycles from the 8-rank iterate,
+    within 1e-12 of a cold 4-rank solve of 6; a grow-back to 8 that must
+    re-plan and re-bind nothing, whose 6-V-cycle solve is within 1e-10 of
+    the cold 8-rank one and launches ``VCYCLE_LAUNCHES`` a V-cycle.  On the
+    flat one also the checkpoint (:func:`elastic_checkpoint`), the
+    straggler (:func:`straggler_part`) and two planted faults: a grow-back
+    through a fresh cache must read cold, and a resume from an iterate in
+    the 8-rank packed layout must miss the 1e-12 bar."""
+    import shutil
+
+    import numpy as np
+
+    from repro_torch.amg import DistributedHierarchy
+    from repro_torch.core import PlanCache
+    from repro_torch.core.costmodel import LASSEN
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.runtime import CheckpointManager
+    from repro_torch.sparse.device import pack_vector
+
+    host = amg["host"]
+    h, b, device, bc = host["h"], host["b"], host["device"], host["block_cols"]
+    t_phase = time.perf_counter()
+    start = dict(LAUNCHES)
+    out: dict = {"configs": {}, "planted": {}}
+    K, M = ELASTIC_K, ELASTIC_M
+    for variant, overlap in ELASTIC_CONFIGS:
+        config = (variant, overlap)
+        tag = f"elastic {variant}/{overlap}"
+        cache = PlanCache()
+
+        def setup(n: int, c):
+            return DistributedHierarchy.setup(
+                h, n, strategy="auto", params=LASSEN, cache=c,
+                spmv_variant=variant, spmv_overlap=overlap,
+                spmv_block_cols=bc, device=device)
+
+        t0 = time.perf_counter()
+        dh8 = setup(N_PROCS, cache)
+        setup_s = time.perf_counter() - t0
+        x_mid, _ = elastic_solve(dh8, b, K)
+        x8_cold, _ = elastic_solve(dh8, b, K + M)
+        offs8 = dh8.levels[0].A.part.offsets
+        dh4 = dh8.repartition(n_procs=ELASTIC_SHRINK_TO, reason="heartbeat")
+        del dh8                          # the 8-rank hierarchy is gone
+        shrink = dh4.last_resize
+        log(f"{tag}: cold 8-rank set-up {setup_s:.2f} s; shrink: {shrink}")
+        if not (shrink.old_n == N_PROCS and shrink.new_n == ELASTIC_SHRINK_TO
+                and shrink.plan_misses > 0):
+            fail(f"{tag}: the first 4-rank build must plan: {shrink}")
+        x_el, launches4 = elastic_solve(dh4, b, M, x0=x_mid)
+        dh4_cold = setup(ELASTIC_SHRINK_TO, PlanCache())
+        x4_cold, _ = elastic_solve(dh4_cold, b, K + M)
+        del dh4_cold
+        err = max_rel(x_el, x4_cold)
+        log(f"{tag}: resumed on 4 ranks vs a cold 4-rank solve of {K + M} "
+            f"V-cycles: max rel err {err:.3e} (bar {ELASTIC_SHRINK_TOL}); "
+            f"launches per V-cycle on 4 ranks "
+            f"{ {k: n / M for k, n in launches4.items()} } beside 8 ranks' "
+            f"{VCYCLE_LAUNCHES[config]}")
+        if not err < ELASTIC_SHRINK_TOL:
+            fail(f"{tag}: the resumed solve is {err:.3e} off the cold one")
+        if on_card and set(VCYCLE_LAUNCHES[config]) - set(launches4):
+            fail(f"{tag}: kernels not launched on 4 ranks: {launches4}")
+        rec = dict(setup_s=setup_s, shrink=dataclasses.asdict(shrink),
+                   shrink_err=err, launches4={k: n / M for k, n in
+                                              launches4.items()})
+        if variant == "flat":
+            ckpt_dir = Path(out_dir) / "elastic_ckpt"
+            shutil.rmtree(ckpt_dir, ignore_errors=True)
+            mgr = CheckpointManager(str(ckpt_dir), keep=2, async_save=True)
+            try:
+                rec["checkpoint"] = elastic_checkpoint(
+                    mgr, x_mid, K, device,
+                    lambda x0: bool(np.array_equal(
+                        elastic_solve(dh4, b, M, x0=x0)[0], x_el)),
+                    CKPT_BF16_SHAPE if on_card else (4, 64, 32))
+            finally:
+                shutil.rmtree(ckpt_dir, ignore_errors=True)
+            if not rec["checkpoint"]["resumed"]:
+                fail(f"{tag}: resuming from the checkpoint is not bitwise "
+                     "the shrink's resumed iterate")
+            log(f"{tag}: checkpoint of the 8-rank iterate and a bf16 "
+                f"w_gate "
+                f"({rec['checkpoint']['bytes'] / 1e6:.1f} MB) saved "
+                f"asynchronously and restored bitwise in "
+                f"{rec['checkpoint']['seconds']:.2f} s; resumed on 4 ranks: "
+                "bitwise the shrink's iterate")
+            # planted: the 8-rank iterate packed under the 8-rank offsets
+            # at the 4-rank pad, handed over as a global vector
+            bad = pack_vector(offs8, dh4.levels[0].pad,
+                              x_mid).reshape(-1)[:len(x_mid)]
+            x_bad, _ = elastic_solve(dh4, b, M, x0=bad)
+            e_bad = max_rel(x_bad, x4_cold)
+            out["planted"]["x0 in the 8-rank layout"] = e_bad
+            if e_bad < ELASTIC_SHRINK_TOL:
+                fail(f"{tag}: a resume from the 8-rank layout passes "
+                     f"({e_bad:.3e})")
+            log(f"{tag} refuses a planted fault, x0 packed under the 8-rank "
+                f"offsets at the 4-rank pad: max rel err {e_bad:.3e}")
+            # planted: a grow-back through a fresh cache must read cold
+            real_cache, dh4.cache = dh4.cache, PlanCache()
+            try:
+                fresh = dh4.repartition(n_procs=N_PROCS,
+                                        reason="requested").last_resize
+            finally:
+                dh4.cache = real_cache
+            out["planted"]["grow-back through a fresh cache"] = str(fresh)
+            if fresh.warm or fresh.plan_misses == 0:
+                fail(f"{tag}: a grow-back through a fresh cache reads warm")
+            log(f"{tag} refuses a planted fault, a grow-back through a "
+                f"fresh cache: {fresh}")
+        dh8b = dh4.repartition(n_procs=N_PROCS, reason="requested")
+        del dh4
+        grow = dh8b.last_resize
+        log(f"{tag}: grow-back: {grow}")
+        if not (grow.plan_misses == 0 and grow.exec_misses == 0
+                and grow.plan_hits > 0 and grow.warm):
+            fail(f"{tag}: the grow-back is not warm: {grow}")
+        x_back, launches8 = elastic_solve(dh8b, b, K + M)
+        err2 = max_rel(x_back, x8_cold)
+        per8 = {k: n / (K + M) for k, n in launches8.items()}
+        log(f"{tag}: grown back, {K + M} V-cycles vs the cold 8-rank solve: "
+            f"max rel err {err2:.3e} (bar {ELASTIC_GROW_TOL}); launches per "
+            f"V-cycle {per8}; replan s cold {shrink.replan_seconds:.3f}, "
+            f"warm {grow.replan_seconds:.3f}")
+        if not err2 < ELASTIC_GROW_TOL:
+            fail(f"{tag}: the grown-back solve is {err2:.3e} off")
+        if on_card and per8 != VCYCLE_LAUNCHES[config]:
+            fail(f"{tag}: launches per V-cycle {per8}, expected "
+                 f"{VCYCLE_LAUNCHES[config]}")
+        rec.update(grow=dataclasses.asdict(grow), grow_err=err2,
+                   launches8=per8)
+        if variant == "flat":
+            rec["straggler"] = straggler_part(dh8b, h, b, cache, on_card)
+        del dh8b
+        out["configs"][config] = rec
+    out["launches"] = {k: LAUNCHES[k] - start[k] for k in LAUNCHES}
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"elastic: launches in the phase {out['launches']}; phase "
+        f"{out['seconds']:.1f} s")
+    return out
+
+
 # ------------------------------------------------------- calibrate phase
 PROBE_N_PER = 16384                  # values a probe message: the reference
 #                                      test's probe size
@@ -1862,7 +2182,17 @@ SERVE_MODES = ("a2a", "hier", "hier_dedup", "auto")
 # first)
 ORACLE_MODES = ("a2a", "hier_dedup")
 SERVE_SEED = 0
-AMPLE_CAP = 8.0                 # no capacity drops: every mode is one function
+# the modes' cap_factor: every mode claims capacity slots in the same
+# token-major order, so where an expert overflows they drop the same pairs
+# and compute one function (left pads, one token repeated, can overflow an
+# expert: DeepSeek's 8 x 6 / 64 slots a token fall short of one a token)
+AMPLE_CAP = 8.0
+
+
+def no_drop_cap(cfg) -> float:
+    """The cap_factor at which no pair can drop: each expert gets capacity
+    for every token of a lane (a token picks an expert at most once)."""
+    return cfg.n_experts / cfg.top_k
 # logits: max |kernel - plain| <= LOGIT_TOL * max |plain| per call, in bf16
 # (a few bf16 roundings, 2^-8 each, that differ between the two through 27
 # layers); greedy tokens must agree on every row whose top-2 margin exceeds
@@ -2140,12 +2470,13 @@ def serve_summary(calls: list, kernels=tuple(SERVE_SOURCES)) -> dict:
 
 
 @contextlib.contextmanager
-def routing(decisions: list, replay: bool):
+def routing(decisions: list, replay: bool, relay=None):
     """Record the MoE router's decisions (``moe.route``'s expert ids,
     weights and aux loss, call by call) while the block runs, or replay
     recorded ones in the same order.  Replaying still runs the router and
     counts the (lane, token) rows whose own expert ids differ from the
-    recorded ones."""
+    recorded ones.  ``relay(recorded, own)`` moves a recorded decision
+    onto this run's lanes (:func:`relaid`) before it is replayed."""
     from repro_torch.models import moe
 
     real = moe.route
@@ -2159,6 +2490,8 @@ def routing(decisions: list, replay: bool):
 
     def forced(x, router_w, plan):
         own, rec = real(x, router_w, plan), next(recorded)
+        if relay is not None:
+            rec = relay(rec, own)
         if own[0].shape != rec[0].shape:
             fail(f"routing replay: {tuple(own[0].shape)} vs "
                  f"{tuple(rec[0].shape)}")
@@ -2171,6 +2504,61 @@ def routing(decisions: list, replay: bool):
         yield stats
     finally:
         moe.route = real
+
+
+@contextlib.contextmanager
+def moe_layer_calls(calls: list):
+    """Record the models' MoE layer calls (``lm.moe_layer``'s arguments,
+    keywords, output and dropped fraction) while the block runs."""
+    from repro_torch.models import lm
+
+    real = lm.moe_layer
+
+    def record(*args, **kw):
+        out = real(*args, **kw)
+        calls.append((args, kw, out[0], float(out[2])))
+        return out
+
+    lm.moe_layer = record
+    try:
+        yield calls
+    finally:
+        lm.moe_layer = real
+
+
+def relaid(src, dst, B: int, S: int):
+    """``relay`` for :func:`routing`: a recorded decision of a batch of B
+    sequences of S tokens, taken on the lanes of mesh ``src``, laid out on
+    those of mesh ``dst``.  ``moe_layer`` splits the batch over the batch
+    devices and each shard's B / n tokens, in order, over the ``model``
+    lanes, padded to a multiple of them; the pad rows, which hold no token,
+    keep the replaying run's own decision."""
+    def layout(mesh):
+        pm = mesh.axes["model"]
+        nb = mesh.size // pm
+        if B % nb:
+            fail(f"relaid: batch {B} not split over {nb} batch devices")
+        n_all = B // nb * S
+        return nb, n_all, n_all + (-n_all) % pm
+
+    def tokens(t, mesh):                 # [G, n_lane, ...] -> [B * S, ...]
+        nb, n_all, n_pad = layout(mesh)
+        tail = t.shape[2:]
+        return t.reshape((nb, n_pad) + tail)[:, :n_all].reshape(
+            (B * S,) + tail)
+
+    def lanes(t, own, mesh):             # [B * S, ...] -> own's layout
+        nb, n_all, n_pad = layout(mesh)
+        tail = own.shape[2:]
+        out = own.reshape((nb, n_pad) + tail).clone()
+        out[:, :n_all] = t.reshape((nb, n_all) + tail)
+        return out.reshape(own.shape)
+
+    def relay(rec, own):
+        return (lanes(tokens(rec[0], src), own[0], dst),
+                lanes(tokens(rec[1], src), own[1], dst), own[2])
+
+    return relay
 
 
 def forward_rows(model, params, tokens) -> "torch.Tensor":
@@ -3176,6 +3564,422 @@ def adaptive_phase(model, params, on_card: bool) -> dict:
                     fitted), seconds=time.perf_counter() - t_phase)
 
 
+ELASTIC_SERVE_SHRINK = 4       # EP lanes left after the heartbeat
+ELASTIC_SERVE_GEOMETRY = (("data", "model"), (1, 4))
+ELASTIC_SERVE_STEPS = 4        # decode steps before and after the resize
+ELASTIC_SERVE_BACK_STEPS = 2   # decode steps after the grow-back
+
+
+def elastic_serve_sizes(on_card: bool) -> dict:
+    """The serve phase's sizes, whose requests all outlast the phase's
+    decode steps; off the card, tiny ones that do too."""
+    if on_card:
+        return serve_sizes(on_card)
+    return dict(slots=4, max_len=64, prompts=(5, 12, 9, 7, 3, 6),
+                new=(12,) * 6)
+
+
+def leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in leaves(tree[k])]
+    return [tree]
+
+
+def elastic_serve_phase(model, params, on_card: bool) -> dict:
+    """Elastic serving on the served weights: ``ServeEngine(elastic=True)``
+    on the serve mesh (2 pods x 4 lanes), 4 slots, the serve phase's
+    requests, ``cap_factor`` :func:`no_drop_cap` (the lane count changes
+    which pairs overflow an expert, so only where none can does it change
+    no function; ``AMPLE_CAP``, the reference elastic program's 8, lets
+    8 lanes drop the left pads of the shortest prompt and 4 not);
+    4 decode steps, ``resize(4)`` (the heartbeat: the geometry must be
+    (data 1, model 4) and no weight tensor may move), 4 more.
+
+    The lane count: the engine's first prefill (the first requests'
+    prompts) runs again on the 8 lanes with its routing and its MoE layers'
+    calls recorded, then after the resize on the 4.  Held: no pair dropped;
+    each MoE layer run on the 4 lanes from the 8 lanes' input of that
+    layer, with their routing laid onto the 4 (:func:`relaid`), within
+    ``SERVE_TOL`` (bf16) of the 8 lanes' output; the whole prefill's logits
+    within ``LOGIT_TOL``, greedy tokens equal on every row whose top-2
+    margin exceeds it.  Planted: the layer check under K6 reading every
+    lane's rows from lane 0; at ``AMPLE_CAP`` the 8 lanes must drop pairs
+    that the 4 keep.
+
+    The resize against a cold 4-lane engine from the prompts
+    (:func:`against_cold`), call by call up to the first split: greedy
+    tokens equal on every row with a clear margin; the logits are printed
+    (a re-prefill and a decode step round apart, and 27 layers of random
+    bf16 weights grow that past ``LOGIT_TOL``), and held in float32 at full
+    width, cut depth (:func:`elastic_float32`): tokens identical, logits
+    within ``F32_LOGIT_TOL``.
+
+    The carry-over: a cold 4-lane engine on the same weight tensors,
+    admitted with the requests as they stood at the resize (prompt +
+    generated), must give identical greedy tokens and every call's logits
+    within ``LOGIT_TOL``; it repeats the resize's re-prefill, so it holds
+    what the resize carries over, not the lane count.  Planted fault: a
+    resume with one slot's last generated token dropped from its history
+    must fail it.  Every engine call after the resize is replayed through
+    the plain K5-K7 within ``LOGIT_TOL`` (routing replayed); K5-K7 calls
+    per decode step on 4 lanes are printed beside 8 lanes'; ``resize(8)``
+    back must be warm, then 2 decode steps."""
+    import copy
+
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.models import Mesh, Model, serving
+    from repro_torch.models.moe import moe_layer
+    from repro_torch.serve import ServeEngine
+
+    sizes = elastic_serve_sizes(on_card)
+    cfg = model.cfg
+    t_phase = time.perf_counter()
+    start = dict(LAUNCHES)
+    eng = ServeEngine(model, params, batch_slots=sizes["slots"],
+                      max_len=sizes["max_len"], elastic=True)
+    calls = recording_engine(eng, on_card)
+    for r in serve_requests(cfg.vocab, sizes):
+        eng.submit(r)
+    for _ in range(ELASTIC_SERVE_STEPS):
+        eng.step()
+    n8, mode8 = len(calls), eng.moe_plan.mode
+
+    # the first prefill again on the 8 lanes, its routing and its MoE
+    # layers' calls recorded
+    first = calls[0]
+    if first["kind"] != "prefill":
+        fail(f"elastic serve: the first engine call is a {first['kind']}")
+    B, S = first["tokens"].shape
+    mesh8 = eng.model.mesh
+
+    def first_prefill(layers: list, route):
+        with route, moe_layer_calls(layers):
+            logits, _ = serving.prefill(
+                eng.model, eng.params,
+                {"tokens": first["tokens"].to(eng.model.device)},
+                max_len=eng.max_len, moe_plan=eng.moe_prefill_plan)
+            card_sync(on_card)
+        return logits.float().cpu()
+
+    by8, layers8 = [], []
+    lanes8 = first_prefill(layers8, routing(by8, replay=False))
+
+    snapshot = copy.deepcopy(eng.slots)
+    decisions: list = []
+    with routing(decisions, replay=False):
+        shrink = eng.resize(ELASTIC_SERVE_SHRINK, reason="heartbeat")
+        for _ in range(ELASTIC_SERVE_STEPS):
+            eng.step()
+    card_sync(on_card)
+    geometry = (tuple(eng.model.mesh.axis_names), tuple(eng.model.mesh.shape))
+    moved = [i for i, (a, b) in enumerate(zip(leaves(params),
+                                              leaves(eng.params)))
+             if a.data_ptr() != b.data_ptr()]
+    log(f"elastic serve: {shrink}; geometry {geometry}, e_phys "
+        f"{model.e_phys} -> {eng.model.e_phys}, weight tensors moved "
+        f"{len(moved)}; decode plan {mode8} -> {eng.moe_plan.mode}")
+    if geometry != ELASTIC_SERVE_GEOMETRY or moved:
+        fail(f"elastic serve: geometry {geometry}, moved leaves {moved}")
+    if not (shrink.old_n == 8 and shrink.new_n == ELASTIC_SERVE_SHRINK):
+        fail(f"elastic serve: {shrink}")
+    launches = {k: LAUNCHES[k] - start[k] for k in SERVE_SOURCES}
+    toks = [list(s.generated) for s in eng.slots]
+    after = calls[n8:]
+
+    # the lane count: the first prefill on the 4 lanes, then each MoE
+    # layer on the 4 lanes from the 8 lanes' input of that layer, with its
+    # routing
+    relay = relaid(mesh8, eng.model.mesh, B, S)
+    layers4: list = []
+    lanes4 = first_prefill(layers4, contextlib.nullcontext())
+    layer_err, layer_flips = [], []
+    dropped = max(c[3] for c in layers8 + layers4)
+    for i, ((a8, _, y8, _), (a4, kw4, _, _)) in enumerate(
+            zip(layers8, layers4)):
+        with routing([by8[i]], replay=True, relay=relay) as fl:
+            y4 = moe_layer(a8[0], *a4[1:], **kw4)[0]
+        layer_err.append(rel_err(y4.float(), y8.float()))
+        layer_flips.append(fl["flipped"])
+    card_sync(on_card)
+    worst = max(range(len(layer_err)), key=layer_err.__getitem__)
+    own = compare_logits([lanes4], [lanes8])
+    top2 = lanes8.topk(2, dim=-1).values
+    gaps = [round(float(g), 5) for g in top2[:, 0] - top2[:, 1]]
+    log(f"elastic serve: the first prefill ({B} x {S} tokens) on 4 lanes "
+        f"against 8: the largest share of a MoE layer's pairs dropped "
+        f"{dropped}; each of the {len(layer_err)} MoE layers from the 8 "
+        f"lanes' input, their routing relaid: max |diff| / max |output| at "
+        f"most {layer_err[worst]:.3e} (layer {worst}; tolerance "
+        f"{SERVE_TOL['bfloat16']}), token routings of their own that differ "
+        f"{layer_flips} of {B * S}")
+    log(f"elastic serve: the whole first prefill on 4 lanes against 8: max "
+        f"|logit diff| / max |logit| {own['rel_err']:.3e} (tolerance "
+        f"{LOGIT_TOL}), greedy tokens differ on "
+        f"{int((lanes4.argmax(-1) != lanes8.argmax(-1)).sum())} of {B} rows, "
+        f"on {own['differ']} of the {own['sure']} with a top-2 margin above "
+        f"the tolerance (the 8 lanes' top-2 gaps {gaps}, max |logit| "
+        f"{float(lanes8.abs().max()):.5f})")
+    if dropped:
+        fail(f"elastic serve: the first prefill drops pairs ({dropped})")
+    if (len(layer_err) != len(layers4) or not layer_err
+            or not layer_err[worst] <= SERVE_TOL["bfloat16"]):
+        fail(f"elastic serve: a MoE layer on 4 lanes is "
+             f"{layer_err[worst]:.3e} off the 8 lanes' (layer {worst} of "
+             f"{len(layer_err)})")
+    if not own["rel_err"] <= LOGIT_TOL or own["differ"]:
+        fail(f"elastic serve: the first prefill on 4 lanes is "
+             f"{own['rel_err']:.3e} off the 8 lanes', greedy tokens differ on "
+             f"{own['differ']} rows with a clear margin")
+    # planted: that layer with K6 reading every lane's rows from lane 0
+    (a8, _, y8, _), (a4, kw4, _, _) = layers8[worst], layers4[worst]
+    with (planted_faults()["K6 reads every lane's rows from lane 0"],
+          routing([by8[worst]], replay=True, relay=relay)):
+        lane_fault = rel_err(moe_layer(a8[0], *a4[1:], **kw4)[0].float(),
+                             y8.float())
+    if lane_fault <= SERVE_TOL["bfloat16"]:
+        fail("elastic serve: the layer check misses K6 reading every lane's "
+             "rows from lane 0")
+    log(f"elastic serve: the layer check refuses a planted fault, K6 reads "
+        f"every lane's rows from lane 0: {lane_fault:.3e} off")
+    del layers8, layers4
+
+    # planted: the reference program's AMPLE_CAP, where an expert can
+    # overflow; the 8 lanes must drop pairs that the 4 lanes keep
+    if AMPLE_CAP < no_drop_cap(cfg):
+        ample = {}
+        for n, mesh in ((8, mesh8), (4, eng.model.mesh)):
+            m = Model(cfg, mesh=mesh, moe_mode=model.moe_mode,
+                      ep_over_pods=model.ep_over_pods,
+                      moe_cap_factor=AMPLE_CAP,
+                      machine_params=model.machine_params,
+                      device=model.device)
+            layers: list = []
+            plan = serving.moe_plan_for_model(m, eng.B * eng.max_len)
+            with moe_layer_calls(layers):
+                logits, _ = serving.prefill(
+                    m, params, {"tokens": first["tokens"].to(m.device)},
+                    max_len=eng.max_len, moe_plan=plan)
+            ample[n] = (logits.float().cpu(), max(c[3] for c in layers))
+            del layers
+        card_sync(on_card)
+        at_cap = compare_logits([ample[4][0]], [ample[8][0]])
+        log(f"elastic serve: the first prefill at cap_factor {AMPLE_CAP} "
+            f"(below {no_drop_cap(cfg):.4f}): dropped pairs on 8 lanes "
+            f"{ample[8][1]}, on 4 {ample[4][1]} (largest share of a MoE "
+            f"layer); 4 lanes against 8, max |logit diff| / max |logit| "
+            f"{at_cap['rel_err']:.3e}")
+        if not ample[8][1] > ample[4][1]:
+            fail(f"elastic serve: at cap_factor {AMPLE_CAP} the 8 lanes drop "
+                 f"no more than the 4 ({ample[8][1]}, {ample[4][1]})")
+        del ample
+
+    cold_model = Model(cfg, mesh=Mesh(*ELASTIC_SERVE_GEOMETRY),
+                       moe_mode=model.moe_mode,
+                       ep_over_pods=model.ep_over_pods,
+                       moe_cap_factor=model.moe_cap_factor,
+                       machine_params=model.machine_params,
+                       device=model.device)
+
+    def cold_engine(requests, steps: int):
+        e = ServeEngine(cold_model, params, batch_slots=sizes["slots"],
+                        max_len=sizes["max_len"])
+        rec = recording_engine(e, on_card)
+        for r in requests:
+            e.submit(r)
+        for _ in range(steps):
+            e.step()
+        card_sync(on_card)
+        return [list(x.generated) for x in e.slots], rec
+
+    # the resize against a cold 4-lane engine run from the prompts
+    cold_toks, cold_calls = cold_engine(serve_requests(cfg.vocab, sizes),
+                                        2 * ELASTIC_SERVE_STEPS)
+    cold = against_cold(calls[:ELASTIC_SERVE_STEPS] + after, cold_calls)
+    log(f"elastic serve vs a cold 4-lane engine from the prompts "
+        f"({2 * ELASTIC_SERVE_STEPS} steps each): greedy tokens equal "
+        f"{toks == cold_toks}; the calls giving tokens 1-{len(cold['steps'])},"
+        f" max |logit diff| / max |logit| "
+        f"{[f'{x:.2e}' for x in cold['steps']]} (tolerance {LOGIT_TOL}, held "
+        f"in float32 below), greedy tokens differ on {cold['differ']} of "
+        f"{cold['sure']} rows with a top-2 margin above it; first split "
+        f"{cold['split']} (the cold engine's top-2 gap and max |logit| there)")
+    if cold["differ"]:
+        fail(f"elastic serve: tokens {toks} vs a cold engine's {cold_toks}: "
+             f"greedy tokens differ on {cold['differ']} rows with a clear "
+             "margin")
+    del cold_calls
+
+    # the carry-over: a cold 4-lane engine admitted with the histories
+    same_toks, same_calls = cold_engine(copy.deepcopy(snapshot),
+                                        ELASTIC_SERVE_STEPS)
+    cmp = compare_logits([c["logits"] for c in after],
+                         [c["logits"] for c in same_calls])
+    log(f"elastic serve vs a cold 4-lane engine admitted with the histories "
+        f"at the resize ({len(after)} calls each): greedy tokens equal "
+        f"{toks == same_toks}; max |logit diff| / max |logit| "
+        f"{cmp['rel_err']:.3e} (tolerance {LOGIT_TOL})")
+    if (toks != same_toks or len(after) != len(same_calls)
+            or not cmp["rel_err"] <= LOGIT_TOL):
+        fail(f"elastic serve: tokens {toks} vs {same_toks}, logits "
+             f"{cmp['rel_err']:.3e} off")
+
+    res = replay_plain(eng.model, eng.params, eng, after, decisions, on_card)
+    per8, per4 = serve_summary(calls[:n8]), serve_summary(after)
+    log(f"elastic serve: {len(after)} engine calls after the resize "
+        f"through the plain K5-K7, routing replayed: max |logit diff| / "
+        f"max |logit| {res['oracle_rel_err']:.3e} (tolerance {LOGIT_TOL}); "
+        f"K5-K7 calls per decode step on 4 lanes "
+        f"{per4['launches_per_decode']} beside 8 lanes' "
+        f"{per8['launches_per_decode']}; ms per decode step "
+        f"{per4['decode_ms']:.3f} beside {per8['decode_ms']:.3f}")
+
+    grow = eng.resize(8, reason="requested")
+    for _ in range(ELASTIC_SERVE_BACK_STEPS):
+        eng.step()
+    card_sync(on_card)
+    log(f"elastic serve: grow-back {grow}; {ELASTIC_SERVE_BACK_STEPS} "
+        "decode steps after it")
+    if not (grow.warm and grow.plan_misses == 0):
+        fail(f"elastic serve: the grow-back is not warm: {grow}")
+    missing = [k for k, n in launches.items() if n <= 0]
+    if on_card and missing:
+        fail(f"elastic serve: kernels not launched: {missing}")
+
+    # planted: the resume with slot 0's last generated token dropped
+    fault = ServeEngine(model, params, batch_slots=sizes["slots"],
+                        max_len=sizes["max_len"], elastic=True)
+    fault.slots = copy.deepcopy(snapshot)
+    fault.slots[0].generated.pop()
+    fault_calls = recording_engine(fault, on_card)
+    fault.resize(ELASTIC_SERVE_SHRINK, reason="heartbeat")
+    for _ in range(ELASTIC_SERVE_STEPS):
+        fault.step()
+    card_sync(on_card)
+    bad = compare_logits([c["logits"] for c in fault_calls],
+                         [c["logits"] for c in same_calls])
+    bad_toks = [list(s.generated[-ELASTIC_SERVE_STEPS:])
+                for s in fault.slots]
+    want_toks = [t[-ELASTIC_SERVE_STEPS:] for t in same_toks]
+    if bad["rel_err"] <= LOGIT_TOL and bad_toks == want_toks:
+        fail("elastic serve: a resume missing a generated token passes")
+    log(f"elastic serve refuses a planted fault, slot 0's last generated "
+        f"token dropped before the resume: max |logit diff| / max |logit| "
+        f"{bad['rel_err']:.3e}, tokens after the resume equal "
+        f"{bad_toks == want_toks}")
+    del fault, fault_calls, same_calls
+    f32 = elastic_float32(model, on_card)
+    out = dict(f32=f32, shrink=dataclasses.asdict(shrink),
+               grow=dataclasses.asdict(grow), geometry=geometry,
+               layer_err=layer_err, layer_flips=layer_flips,
+               lane_fault=lane_fault, dropped=dropped,
+               cold_steps=cold["steps"], cold_split=cold["split"],
+               cold_tokens_equal=toks == cold_toks,
+               lanes_rel_err=own["rel_err"], lanes_differ=own["differ"],
+               top2_gaps=gaps,
+               same_rel_err=cmp["rel_err"],
+               oracle_rel_err=res["oracle_rel_err"], launches=launches,
+               per_decode4=per4["launches_per_decode"],
+               per_decode8=per8["launches_per_decode"],
+               decode_ms4=per4["decode_ms"], decode_ms8=per8["decode_ms"],
+               planted=bad["rel_err"], seconds=time.perf_counter() - t_phase)
+    log(f"elastic serve: launches {launches}; phase {out['seconds']:.1f} s")
+    return out
+
+
+def against_cold(mine: list, cold: list, tol: float = LOGIT_TOL) -> dict:
+    """An elastic engine's calls that gave tokens 1, 2, ... (``mine``: the
+    prefill and decode steps before the resize, then the re-prefill and
+    the steps after it) against a cold engine's (its prefill and decode
+    steps), call by call while every history agrees: up to and with the
+    first call whose greedy token differs on a row.  Returns each call's
+    max |logit diff| / max |logit| (``steps``), the rows with a top-2
+    margin above ``tol`` (``sure``) and those of them whose greedy tokens
+    differ (``differ``), and the first split (slot, token, the cold
+    engine's top-2 gap and max |logit| there)."""
+    import torch
+
+    steps, sure, differ, split = [], 0, 0, None
+    for t, (e, c) in enumerate(zip(mine, cold)):
+        res = compare_logits([e["logits"]], [c["logits"]], tol)
+        steps.append(res["rel_err"])
+        sure, differ = sure + res["sure"], differ + res["differ"]
+        rows = torch.nonzero(e["logits"].argmax(-1) != c["logits"].argmax(-1))
+        if len(rows):
+            i = int(rows[0, 0])
+            top2 = c["logits"][i].topk(2).values
+            split = dict(slot=i, token=t, gap=float(top2[0] - top2[1]),
+                         max_logit=float(c["logits"][i].abs().max()))
+            break
+    return dict(steps=steps, sure=sure, differ=differ, split=split)
+
+
+ELASTIC_F32_LAYERS = 4          # 1 dense + 3 MoE layers: 8.6 GB in float32
+# whole-model logits in float32: LOGIT_TOL is 4 bf16 kernel tolerances
+# (SERVE_TOL), so 4 float32 ones
+F32_LOGIT_TOL = 4 * SERVE_TOL["float32"]
+
+
+def elastic_float32(model, on_card: bool) -> dict:
+    """The reference's resize contract (``check_elastic.py``'s decode
+    shrink) at full width in float32, depth cut to ``ELASTIC_F32_LAYERS``
+    (the reference holds it in float64: bf16 rounds a re-prefill and a
+    decode step apart by more than ``LOGIT_TOL`` through 27 layers of
+    random weights).  An 8-lane elastic engine of ``model``'s settings, 4
+    steps, ``resize(4)``, 4 more, against a cold 4-lane engine of 8 steps
+    from the same prompts: greedy tokens identical and every call's logits
+    within ``F32_LOGIT_TOL``."""
+    import torch
+
+    from repro_torch.models import Mesh, Model
+    from repro_torch.serve import ServeEngine
+
+    cfg = dataclasses.replace(model.cfg, dtype=torch.float32, n_layers=min(
+        ELASTIC_F32_LAYERS, model.cfg.n_layers))
+    sizes = elastic_serve_sizes(on_card)
+    t0 = time.perf_counter()
+
+    def engine(mesh, params=None, elastic=False):
+        m = Model(cfg, mesh=mesh, moe_mode=model.moe_mode,
+                  ep_over_pods=model.ep_over_pods,
+                  moe_cap_factor=model.moe_cap_factor,
+                  machine_params=model.machine_params, device=model.device)
+        params = m.init_params(seed=SERVE_SEED) if params is None else params
+        e = ServeEngine(m, params, batch_slots=sizes["slots"],
+                        max_len=sizes["max_len"], elastic=elastic)
+        for r in serve_requests(cfg.vocab, sizes):
+            e.submit(r)
+        return e, recording_engine(e, on_card)
+
+    eng, calls = engine(model.mesh, elastic=True)
+    for _ in range(ELASTIC_SERVE_STEPS):
+        eng.step()
+    n8 = len(calls)
+    eng.resize(ELASTIC_SERVE_SHRINK, reason="heartbeat")
+    for _ in range(ELASTIC_SERVE_STEPS):
+        eng.step()
+    cold, cold_calls = engine(Mesh(*ELASTIC_SERVE_GEOMETRY), eng.params)
+    for _ in range(2 * ELASTIC_SERVE_STEPS):
+        cold.step()
+    card_sync(on_card)
+    toks = [list(s.generated) for s in eng.slots]
+    cold_toks = [list(s.generated) for s in cold.slots]
+    res = against_cold(calls[:ELASTIC_SERVE_STEPS] + calls[n8:], cold_calls,
+                       F32_LOGIT_TOL)
+    worst = max(res["steps"])
+    log(f"elastic serve in float32 ({cfg.n_layers} layers of full width): "
+        f"vs a cold 4-lane engine from the prompts ({2 * ELASTIC_SERVE_STEPS}"
+        f" steps each): greedy tokens equal {toks == cold_toks}; the calls "
+        f"giving tokens 1-{len(res['steps'])}, max |logit diff| / max "
+        f"|logit| {[f'{x:.2e}' for x in res['steps']]} (tolerance "
+        f"{F32_LOGIT_TOL}); {time.perf_counter() - t0:.1f} s")
+    if toks != cold_toks or not worst <= F32_LOGIT_TOL:
+        fail(f"elastic serve in float32: tokens {toks} vs a cold engine's "
+             f"{cold_toks}, logits {worst:.3e} off")
+    del eng, cold, calls, cold_calls
+    return dict(steps=res["steps"], tokens_equal=toks == cold_toks,
+                layers=cfg.n_layers)
+
+
 def serve_run(device: str = "cuda", reduced_config: bool = False) -> dict:
     """The serve phase: DeepSeek-V2-Lite (full width and depth on the card,
     the reduced config for the CPU rehearsal) in bf16 on 8 stacked EP lanes,
@@ -3317,9 +4121,11 @@ def serve_run(device: str = "cuda", reduced_config: bool = False) -> dict:
             f"{prof['idle_share']:.3f}, {prof['device_ops']} device ops; "
             f"most device ms: {prof['top_device']}")
     adaptive = adaptive_phase(model_for("auto"), params, on_card)
+    elastic = elastic_serve_phase(model_for("auto", no_drop_cap(cfg)), params,
+                                  on_card)
     return dict(modes=modes, launches=launches, cuda_launches=cuda_launches,
                 kernels=kernels, profile=prof, n_params=n_params,
-                n_bytes=n_bytes, adaptive=adaptive)
+                n_bytes=n_bytes, adaptive=adaptive, elastic=elastic)
 
 
 def run(device: str = "cuda", rows: int = 524_288, block_cols: int = 512,
@@ -3458,6 +4264,11 @@ def main() -> int:
     done("partitioned and dense")
     verify_phase(res, part_res, on_card=True)
     done("verify")
+    elastic = elastic_phase(res, True, ROOT / "chiprun_out")
+    missing = [k for k in ELASTIC_KERNELS if elastic["launches"][k] <= 0]
+    if missing:
+        fail(f"kernels never launched in the elastic phase: {missing}")
+    done("elastic")
     cal = calibrate_phase(res, part_res, card_figures(res),
                           ROOT / "chiprun_out" / "calibrate")["launches"]
     missing = [k for k in CALIBRATE_KERNELS if cal[k] <= 0]
@@ -3467,7 +4278,8 @@ def main() -> int:
     log(f"total {time.perf_counter() - t_start:.1f} s; seconds by phase: "
         + ", ".join(f"{k} {v:.1f}" for k, v in phases.items())
         + f" (the serve phase's adaptive part "
-          f"{serve['adaptive']['seconds']:.1f})")
+          f"{serve['adaptive']['seconds']:.1f}, its elastic part "
+          f"{serve['elastic']['seconds']:.1f})")
     timing = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
               "device_ms", "host_us", "library_device_ms")
     records = []
@@ -3479,6 +4291,7 @@ def main() -> int:
             cuda_launches=res["cuda_launches"][name],
             partitioned_launches=part[name],
             calibrate_launches=cal[name],
+            elastic_launches=elastic["launches"][name],
             max_abs_err=rec["max_abs_err"],
             **{k: rec[k] for k in timing}))
     # K7 runs on both serve paths: its launches are both paths' and its
@@ -3494,6 +4307,7 @@ def main() -> int:
             launches=sum(p["launches"].get(name, 0) for p in (serve, hybrid)),
             cuda_launches=sum(p["cuda_launches"].get(name, 0)
                               for p in (serve, hybrid)),
+            elastic_launches=serve["elastic"]["launches"].get(name, 0),
             max_abs_err=err, **{k: rec[k] for k in timing},
             **({"decode": {k: rec["decode"][k] for k in timing}}
                if "decode" in rec else {}),

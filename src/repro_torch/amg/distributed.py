@@ -27,6 +27,15 @@ rho estimates the residual history tracks the host
 dense allgatherv (``core.dense``) and smooths replicated on a dense
 operator.
 
+Elasticity: :meth:`DistributedHierarchy.repartition` rebuilds the whole
+hierarchy onto another rank count or row balance *through the same
+PlanCache*, so only patterns the new geometry has never seen are
+re-planned: a grow-back to a rank count used before re-plans nothing
+(observable through the ``runtime.controller.ResizeEvent`` in
+``last_resize``).  ``row_weights`` (per-host EWMA step seconds from
+``runtime.straggler``) skews every level's row blocks inversely to the
+measured speed, the straggler mitigation.
+
 Measurement: :meth:`DistributedHierarchy.measure_exchange_seconds` times
 each level's bare exchange (the pure-exchange feed of the rate fit,
 ``profile.calibrate.fit_trace``) and
@@ -34,7 +43,8 @@ each level's bare exchange (the pure-exchange feed of the rate fit,
 kernels included.
 
 Entry points: ``DistributedHierarchy.setup(...)``,
-``.setup_partitioned(...)``, ``.solve(b, x0=...)``, ``.describe()``,
+``.setup_partitioned(...)``, ``.solve(b, x0=...)``, ``.repartition(...)``,
+``.describe()``,
 ``.selection_table()``, ``.kernel_table()``,
 ``.measure_exchange_seconds(...)``, ``.measure_spmv_seconds(...)``.
 """
@@ -80,7 +90,7 @@ from .distributed_setup import (
     _block_inv_diag,
     distributed_build_hierarchy,
 )
-from .hierarchy import Hierarchy, inv_diag
+from .hierarchy import Hierarchy, Level, inv_diag
 
 _OBS = default_obs()
 
@@ -136,6 +146,16 @@ def _default_procs_per_region(n_procs: int) -> int:
     return 1
 
 
+def _policy(spmv_variant: str, spmv_vmem_limit: Optional[int],
+            spmv_block_cols: int, spmv_overlap: str,
+            spmv_overlap_figures: Optional[Dict[str, float]]) -> Dict:
+    """The kernel and overlap policy a hierarchy is built under (which
+    every operator is selected by, and a repartition carries over)."""
+    return dict(spmv_variant=spmv_variant, spmv_vmem_limit=spmv_vmem_limit,
+                spmv_block_cols=spmv_block_cols, spmv_overlap=spmv_overlap,
+                spmv_overlap_figures=spmv_overlap_figures)
+
+
 def _op_maker(cache: PlanCache, topo: Topology, strategy: str,
                 params: MachineParams, value_bytes: int, dtype,
                 spmv_variant: str, spmv_vmem_limit: Optional[int],
@@ -179,6 +199,11 @@ class DistributedHierarchy:
         params: MachineParams,
         value_bytes: int,
         coarse_gather: str = "off",
+        spmv_variant: str = "flat",
+        spmv_vmem_limit: Optional[int] = None,
+        spmv_block_cols: int = DEFAULT_BLOCK_COLS,
+        spmv_overlap: str = "off",
+        spmv_overlap_figures: Optional[Dict[str, float]] = None,
     ):
         self.levels = levels
         self.device = device
@@ -190,6 +215,13 @@ class DistributedHierarchy:
         self.strategy = strategy
         self.params = params
         self.value_bytes = value_bytes
+        # the kernel and overlap policies the hierarchy was built under,
+        # which a repartition carries over
+        self.spmv_variant = spmv_variant
+        self.spmv_vmem_limit = spmv_vmem_limit
+        self.spmv_block_cols = spmv_block_cols
+        self.spmv_overlap = spmv_overlap
+        self.spmv_overlap_figures = spmv_overlap_figures
         # coarsest-level dense allgatherv policy: "off" keeps the
         # distributed Chebyshev; "auto" / "hier" / "ring" gather the
         # coarse rhs with a plan-based dense collective and smooth
@@ -199,6 +231,12 @@ class DistributedHierarchy:
         # the distributed-setup record (per-level blocks + exchange
         # accounting) of setup_partitioned; None for a host hierarchy
         self.setup_info: Optional[DistributedSetup] = None
+        # elastic bookkeeping: the host hierarchy this was lowered from
+        # (the repartition's source of truth; rebuilt on demand for a
+        # setup_partitioned hierarchy) and the ResizeEvent of the rebuild
+        # that produced this instance (None for a first setup)
+        self._host: Optional[Hierarchy] = None
+        self.last_resize = None
         self._Amv = [self._bind(lv.A) for lv in levels]
         self._Rmv = [self._bind(lv.R) if lv.R is not None else None
                      for lv in levels]
@@ -226,6 +264,7 @@ class DistributedHierarchy:
         spmv_overlap_figures: Optional[Dict[str, float]] = None,
         coarse_gather: str = "off",
         device=None,
+        row_weights: Optional[np.ndarray] = None,
     ) -> "DistributedHierarchy":
         """Partition every level over ``n_procs`` ranks and init its
         collectives once (persistent), with every rank's data stacked on
@@ -242,20 +281,39 @@ class DistributedHierarchy:
         which it then needs.  All choices are recorded on each
         :class:`DistOp`.  ``coarse_gather`` is ``"off"``, ``"auto"``,
         ``"hier"`` or ``"ring"`` (see :meth:`_bind_coarse`).
+
+        ``row_weights`` (per-host step *seconds*, e.g. the EWMA of
+        ``runtime.straggler.StragglerDetector``) skews every level's row
+        blocks inversely to the weights through
+        ``runtime.straggler.rebalance_shards``: a 2x-slower host owns half
+        the rows.  ``None`` keeps the balanced contiguous blocking.
         """
         device = resolve_device(device)
         topo = Topology(
             n_procs, procs_per_region or _default_procs_per_region(n_procs)
         )
         cache = cache if cache is not None else default_plan_cache()
+        policy = _policy(spmv_variant, spmv_vmem_limit, spmv_block_cols,
+                         spmv_overlap, spmv_overlap_figures)
         build = _op_maker(cache, topo, strategy, params, value_bytes, dtype,
-                            spmv_variant, spmv_vmem_limit, spmv_block_cols,
-                            spmv_overlap, spmv_overlap_figures)
+                            **policy)
 
         def make_op(mat, row_off, col_off) -> DistOp:
             return build(partition_rect_csr(mat, row_off, col_off))
 
-        offs = [block_offsets(lvl.A.nrows, n_procs) for lvl in h.levels]
+        if row_weights is None:
+            offs = [block_offsets(lvl.A.nrows, n_procs) for lvl in h.levels]
+        else:
+            from ..runtime.straggler import rebalance_shards
+
+            w = np.asarray(row_weights, dtype=float).reshape(-1)
+            assert len(w) == n_procs, (len(w), n_procs)
+            offs = [
+                np.concatenate(
+                    [[0], np.cumsum(rebalance_shards(w, lvl.A.nrows))]
+                ).astype(np.int64)
+                for lvl in h.levels
+            ]
         levels: List[DistributedLevel] = []
         with _OBS.span("amg/setup", n_procs=n_procs, strategy=strategy,
                        levels=len(h.levels)):
@@ -281,8 +339,10 @@ class DistributedHierarchy:
                     lsp.set(strategy=A_op.strategy,
                             kernel=A_op.kernel_variant,
                             overlap=A_op.overlap_mode)
-            return cls(levels, device, topo, cache, dtype, strategy, params,
-                       value_bytes, coarse_gather=coarse_gather)
+            dh = cls(levels, device, topo, cache, dtype, strategy, params,
+                     value_bytes, coarse_gather=coarse_gather, **policy)
+        dh._host = h
+        return dh
 
     @classmethod
     def setup_partitioned(
@@ -333,9 +393,10 @@ class DistributedHierarchy:
             strength_theta=strength_theta, seed=seed,
             strategy=strategy, value_bytes=value_bytes, params=params,
         )
+        policy = _policy(spmv_variant, spmv_vmem_limit, spmv_block_cols,
+                         spmv_overlap, spmv_overlap_figures)
         build = _op_maker(cache, topo, strategy, params, value_bytes, dtype,
-                            spmv_variant, spmv_vmem_limit, spmv_block_cols,
-                            spmv_overlap, spmv_overlap_figures)
+                            **policy)
 
         def make_op(blocks, row_off, col_off) -> DistOp:
             return build(partitioned_from_blocks(blocks, row_off, col_off))
@@ -369,7 +430,7 @@ class DistributedHierarchy:
                             kernel=A_op.kernel_variant,
                             overlap=A_op.overlap_mode)
             dh = cls(levels, device, topo, cache, dtype, strategy, params,
-                     value_bytes, coarse_gather=coarse_gather)
+                     value_bytes, coarse_gather=coarse_gather, **policy)
         dh.setup_info = setup
         return dh
 
@@ -534,6 +595,82 @@ class DistributedHierarchy:
                 x = x_new
             sp.set(iters=len(hist), final_rel=hist[-1] if hist else 0.0)
         return unpack_vector(lv0.A.part.offsets, x.cpu().numpy()), hist
+
+    # ------------------------------------------------------------ elastic
+    def _global_hierarchy(self) -> Hierarchy:
+        """The host hierarchy this solve represents: stored by
+        :meth:`setup`, reassembled (values bit-exact, through
+        ``sparse.partition.partitioned_to_global``) for a hierarchy built
+        by :meth:`setup_partitioned`.  ``rho`` estimates carry over
+        unchanged, so the repartitioned Chebyshev arithmetic is
+        identical."""
+        if self._host is not None:
+            return self._host
+        levels: List[Level] = []
+        for lv in self.levels:
+            levels.append(Level(
+                A=partitioned_to_global(lv.A.part),
+                P=partitioned_to_global(lv.P.part) if lv.P else None,
+                R=partitioned_to_global(lv.R.part) if lv.R else None,
+                rho=lv.rho,
+            ))
+        self._host = Hierarchy(levels)
+        return self._host
+
+    def repartition(
+        self,
+        n_procs: Optional[int] = None,
+        procs_per_region: Optional[int] = None,
+        row_weights: Optional[np.ndarray] = None,
+        params: Optional[MachineParams] = None,
+        reason: str = "requested",
+    ) -> "DistributedHierarchy":
+        """Rebuild the hierarchy onto a new geometry through the SAME cache.
+
+        The elastic entry point: pass another ``n_procs`` after a
+        device-set change, ``row_weights`` (per-host step seconds) after a
+        straggler flag, and/or re-fitted ``params`` so the Section-5
+        selector re-runs under measured rates.  Strategy, value bytes,
+        dtype, device, the kernel and overlap policies and
+        ``coarse_gather`` carry over.  Every pattern is re-planned through
+        ``self.cache``: patterns the target geometry has produced before
+        (growing back to a rank count used before, say) hit the surviving
+        entries and re-plan nothing.  The returned hierarchy carries a
+        ``runtime.controller.ResizeEvent`` in ``last_resize`` with the
+        rebuild's wall time and the plan-cache miss/hit delta.
+        """
+        from ..runtime.controller import cache_delta_event
+
+        n_procs = n_procs if n_procs is not None else self.topo.n_procs
+        h = self._global_hierarchy()
+        before = self.cache.counters()
+        t0 = now()
+        with _OBS.span("amg/repartition", reason=reason,
+                       old_n=self.topo.n_procs) as sp:
+            new = DistributedHierarchy.setup(
+                h, n_procs,
+                procs_per_region=procs_per_region,
+                strategy=self.strategy,
+                params=params if params is not None else self.params,
+                value_bytes=self.value_bytes,
+                cache=self.cache,
+                dtype=self.dtype,
+                spmv_variant=self.spmv_variant,
+                spmv_vmem_limit=self.spmv_vmem_limit,
+                spmv_block_cols=self.spmv_block_cols,
+                spmv_overlap=self.spmv_overlap,
+                spmv_overlap_figures=self.spmv_overlap_figures,
+                coarse_gather=self.coarse_gather,
+                device=self.device,
+                row_weights=row_weights,
+            )
+            sp.set(new_n=new.topo.n_procs)
+        secs = now() - t0
+        new.last_resize = cache_delta_event(
+            self.cache, before, reason,
+            self.topo.n_procs, new.topo.n_procs, secs,
+        )
+        return new
 
     # ------------------------------------------------------- introspection
     def bound_product(self, level: int, op: str) -> Optional[Callable]:

@@ -43,13 +43,16 @@ import numpy as np
 import torch
 
 from ..core.cache import default_plan_cache, pattern_fingerprint
-from ..core.costmodel import MachineParams
+from ..core.costmodel import LASSEN, MachineParams
 from ..core.dynexchange import DiscoveryStats, SparseDynamicExchange
 from ..core.plan import CommPattern, Topology
 from ..core.selection import SelectionReport, select_plan
 from ..kernels.moe_pack import combine_lanes as pack_combine_lanes
 from ..kernels.moe_pack import pack as pack_gather
+from ..obs import default_obs
 from .common import ArchConfig, Initializer, Mesh, activation, compute_dtype
+
+_OBS = default_obs()
 
 MODES = ("dense", "a2a", "hier", "hier_dedup")
 
@@ -422,6 +425,122 @@ def init_moe(init: Initializer, cfg: ArchConfig, L: int, e_phys: int) -> Dict:
         p["ws_up"] = init.tensor((L, d, fs), fan_in=d)
         p["ws_down"] = init.tensor((L, fs, d), fan_in=fs)
     return p
+
+
+EXPERT_WEIGHT_KEYS = ("w_gate", "w_up", "w_down")
+
+
+def remap_expert_params(moe_params: Dict, e_log: int,
+                        r_old: int, r_new: int) -> Dict:
+    """Re-replicate expert weights for a changed EP group size.
+
+    The physical expert layout is ``phys = logical * replicas + rep``
+    (see ``_pack_routing``), so replica 0 of every logical expert lives at
+    stride ``replicas``: slicing ``[:, ::r_old]`` recovers the logical
+    weights and ``repeat_interleave(r_new, dim=1)`` re-expands them for
+    the new group (``np.repeat`` along axis 1 in ``repro``).  Operates on
+    the expert tensors (``w_gate`` / ``w_up`` / ``w_down``, shape
+    [L, e_log*r, ...]) where they lie; router and shared weights are
+    replication-independent and pass through untouched.  Dtypes are
+    preserved.
+    """
+    out = dict(moe_params)
+    for key in EXPERT_WEIGHT_KEYS:
+        v = moe_params[key]
+        assert v.shape[1] == e_log * r_old, (tuple(v.shape), e_log, r_old)
+        base = v[:, ::r_old]                   # replica 0 per logical expert
+        out[key] = base.repeat_interleave(r_new, dim=1)
+    return out
+
+
+def _expert_rows(plan: MoEPlan) -> Tuple[Tuple[int, int], ...]:
+    """Each EP lane's ``(lo, hi)`` range of physical experts, in EP-rank
+    order."""
+    e = plan.e_per_dev
+    return tuple((g * e, (g + 1) * e) for g in range(plan.ep_size))
+
+
+def moe_param_specs(cfg: ArchConfig, plan: MoEPlan) -> Dict:
+    """Which EP lane owns which rows of the expert tensors under ``plan``.
+
+    ``repro`` returns ``PartitionSpec`` s that shard the physical-expert
+    dim over the EP axes; the port keeps every tensor whole on one card,
+    so its counterpart is the ownership map itself: for ``w_gate`` /
+    ``w_up`` / ``w_down`` one ``(lo, hi)`` range of physical experts
+    (dim 1) per EP lane, in EP-rank order (pod-major); ``None`` for the
+    router and the shared experts, which every lane reads whole."""
+    p: Dict = {"router": None}
+    p.update(dict.fromkeys(EXPERT_WEIGHT_KEYS, _expert_rows(plan)))
+    if cfg.n_shared_experts:
+        p.update(dict.fromkeys(("ws_gate", "ws_up", "ws_down")))
+    return p
+
+
+def gather_expert_weights(
+    moe_params: Dict,
+    plan: MoEPlan,
+    mesh: Mesh,
+    method: str = "auto",
+    cache=None,
+    params: MachineParams = LASSEN,
+):
+    """Replicate the EP-owned expert weights with a plan-based dense
+    allgatherv: ``(gathered_params, DenseSelection)``.
+
+    Each EP lane's rows of the expert tensors (``w_gate`` / ``w_up`` /
+    ``w_down``, the ranges :func:`moe_param_specs` names) are flattened
+    into one segment and gathered in a single dense collective over
+    :func:`dispatch_topology` (so region structure matches the dispatch
+    transport), selected by the Section-5 cost model under ``params``
+    (``method="auto"``) or pinned (``"hier"`` / ``"ring"``), and run by
+    the rank-stacked executor (``core.dense.bind_dense``) on the tensors'
+    device.  Every lane then holds every segment; lane 0's copy folds back
+    into the ``[L, e_phys, ...]`` tensors.  Router and shared-expert
+    weights pass through untouched.  The returned
+    :class:`~repro_torch.core.dense.DenseSelection` is the recorded
+    choice."""
+    from ..core.dense import bind_dense
+
+    if len(plan.ep_axes) != 1:
+        raise ValueError(
+            f"gather_expert_weights needs a single EP mesh axis, got "
+            f"{plan.ep_axes!r}"
+        )
+    if mesh.axes[plan.ep_axes[0]] != plan.ep_size:
+        raise ValueError(f"mesh {mesh.axes} does not carry plan's EP group "
+                         f"of {plan.ep_size} on {plan.ep_axes[0]!r}")
+    ep, e_per_dev = plan.ep_size, plan.e_per_dev
+    gshapes = {k: tuple(moe_params[k].shape) for k in EXPERT_WEIGHT_KEYS}
+    lshapes = {k: (s[0], e_per_dev) + s[2:] for k, s in gshapes.items()}
+    sizes = {k: math.prod(s) for k, s in lshapes.items()}
+    chunk = sum(sizes.values())
+
+    cache = cache if cache is not None else default_plan_cache()
+    topo = dispatch_topology(plan)
+    with _OBS.span("moe/expert_gather_plan", method=method, ep=ep,
+                            chunk=chunk) as sp:
+        dplan, sel = cache.dense_collective(
+            "allgatherv", np.full(ep, chunk, dtype=np.int64), topo,
+            variant=method, params=params,
+        )
+        sp.set(chosen=sel.chosen)
+    w0 = moe_params[EXPERT_WEIGHT_KEYS[0]]
+    run = bind_dense(dplan, w0.device)
+    own = torch.stack([
+        torch.cat([moe_params[k][:, lo:hi].reshape(-1)
+                   for k in EXPERT_WEIGHT_KEYS])
+        for lo, hi in _expert_rows(plan)
+    ])                                        # [ep, chunk] own segments
+    full = run(own)[0]                        # lane 0's [ep, chunk] copy
+    out = dict(moe_params)
+    off = 0
+    for k in EXPERT_WEIGHT_KEYS:
+        part = full[:, off:off + sizes[k]].reshape((ep,) + lshapes[k])
+        # [ep, L, e_per_dev, ...] -> [L, ep*e_per_dev, ...]: lanes hold
+        # contiguous expert blocks in rank order
+        out[k] = part.movedim(0, 1).reshape(gshapes[k])
+        off += sizes[k]
+    return out, sel
 
 
 # ---------------------------------------------------------------------------

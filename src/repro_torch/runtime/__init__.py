@@ -1,11 +1,39 @@
-"""repro_torch.runtime: the control loop's records.
+"""repro_torch.runtime: the elastic runtime.
 
-Ported from ``repro.runtime`` so far: :class:`~.controller.RefitEvent`, the
-record of one online re-calibration of ``ServeEngine(observe=True)``.  The
-elastic pieces (``ResizeEvent``, ``RebalanceEvent``, ``ElasticController``
-and the ``elastic``, ``straggler`` and ``checkpoint`` modules) are still to
-port (ROADMAP Queue 1).
+Ported from ``repro.runtime``: checkpoint/restart (``checkpoint``), mesh
+re-selection, heartbeats and state placement (``elastic``), straggler
+detection and the row rebalance (``straggler``), and the controller that
+turns device-set changes and stragglers into re-planning through the shared
+plan cache, with its resize, rebalance and refit records (``controller``).
 """
-from .controller import RefitEvent
+from .checkpoint import (
+    CheckpointManager,
+    latest_step,
+    restore_checkpoint,
+    save_checkpoint,
+)
+from .controller import (
+    ElasticController,
+    RebalanceEvent,
+    RefitEvent,
+    ResizeEvent,
+    cache_delta_event,
+)
+from .elastic import (
+    HeartbeatMonitor,
+    MeshRequirements,
+    choose_mesh_shape,
+    make_mesh_from_devices,
+    reshard_state,
+)
+from .straggler import StragglerConfig, StragglerDetector, rebalance_shards
 
-__all__ = ["RefitEvent"]
+__all__ = [
+    "CheckpointManager", "latest_step", "restore_checkpoint",
+    "save_checkpoint",
+    "HeartbeatMonitor", "MeshRequirements", "choose_mesh_shape",
+    "make_mesh_from_devices", "reshard_state",
+    "StragglerConfig", "StragglerDetector", "rebalance_shards",
+    "ElasticController", "RebalanceEvent", "ResizeEvent",
+    "cache_delta_event", "RefitEvent",
+]

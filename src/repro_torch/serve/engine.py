@@ -7,9 +7,8 @@ worst-case prefill dispatch plans, the adaptive re-planner
 ``verify``, the ``serve/admit``, ``serve/prefill`` and
 ``serve/decode_step`` spans, the ``serve/replan`` and ``serve/refit``
 events, and the ``serve/request_seconds``, ``serve/steps`` and
-``serve/tokens`` metrics.  Elastic serving (``elastic=`` / ``resize``) is
-still to port, with ``runtime.elastic``, ``straggler`` and ``checkpoint``
-(ROADMAP Queue 1).
+``serve/tokens`` metrics, and elastic serving (``elastic=True``,
+``resize``, ``resize_events``).
 
 Static batch slots: requests are admitted into free slots and the whole
 batch prefills together (each active slot re-presents its full history as
@@ -25,6 +24,18 @@ re-selection the engine pins the new plan for its decode steps
 (:meth:`ServeEngine._decode` reads ``moe_plan`` at every step; the
 dispatch executors are cached per geometry by the plan cache, so a return
 to a seen plan builds nothing).
+
+Elastic serving (``elastic=True``): :meth:`ServeEngine.resize` drains the
+decode loop mid-stream (every sequence already lives host-side as
+prompt + generated), rebuilds the model on a lane mesh chosen by
+``runtime.elastic.choose_mesh_shape`` for the surviving device count (or
+the geometry this engine already served at that count), re-replicates the
+expert weights if the physical expert count changed (else the weight
+tensors stay where they are, uncopied), re-plans the decode and pinned
+prefill dispatch through the SAME plan cache (a grow-back to a seen
+geometry re-plans nothing) and resumes by re-prefilling the surviving
+sequences, the admission contract.  Each resize is recorded as a
+``runtime.controller.ResizeEvent``.
 
 Observability (``observe=True``): the engine enables the process-wide
 ``repro_torch.obs`` layer with a ``TraceRecorder`` attached, and every
@@ -70,11 +81,21 @@ class ServeEngine:
     def __init__(self, model: Model, params, batch_slots: int = 4,
                  max_len: int = 256, adaptive: bool = False,
                  drift_threshold: float = 0.3, drift_warmup: int = 2,
-                 tracer=None, observe: bool = False, refit_every: int = 32):
+                 tracer=None, elastic: bool = False, observe: bool = False,
+                 refit_every: int = 32):
         self.model = model
         self.params = params
         self.B = batch_slots
         self.max_len = max_len
+        self.elastic = elastic
+        self.resize_events: List[object] = []
+        # device count -> (mesh shape, axis names) this engine has served
+        # on: a grow-back to a seen count reuses that exact geometry, so
+        # every plan and executor for it is still in the cache
+        self._seen_geometries: Dict[int, tuple] = {
+            model.mesh.size: (tuple(model.mesh.shape),
+                              tuple(model.mesh.axis_names)),
+        }
         # online calibration (observe=True): every `refit_every` decode
         # steps, probe the dispatch exchange and refit MachineParams from
         # the tracer's pure samples; the fitted params land here and on the
@@ -111,13 +132,20 @@ class ServeEngine:
         self.moe_plan = self.moe_prefill_plan = None
         self.planner: Optional[AdaptivePlanner] = None
         self.adaptive = adaptive and model.cfg.family == "moe"
-        if model.cfg.family == "moe":
-            self.moe_plan = serving.moe_plan_for_model(
-                model, self.B, cache=self.plan_cache)
-            self.moe_prefill_plan = serving.moe_plan_for_model(
-                model, self.B * self.max_len, cache=self.plan_cache)
+        self._warm_plans()
         if self.adaptive:
             self.planner = self._make_planner()
+
+    def _warm_plans(self) -> None:
+        """Pre-plan the decode-step dispatch (one token per slot) and the
+        worst-case prefill dispatch (B * max_len tokens) of the current
+        model through the engine's plan cache."""
+        self.moe_plan = self.moe_prefill_plan = None
+        if self.model.cfg.family == "moe":
+            self.moe_plan = serving.moe_plan_for_model(
+                self.model, self.B, cache=self.plan_cache)
+            self.moe_prefill_plan = serving.moe_plan_for_model(
+                self.model, self.B * self.max_len, cache=self.plan_cache)
 
     def verify(self) -> Dict[str, int]:
         """Statically verify the engine's live MoE dispatch plans.
@@ -216,6 +244,100 @@ class ServeEngine:
         self.cur_len = T
         self._next_tok = torch.argmax(logits, dim=-1).to(
             torch.int32).cpu().numpy()[:, None]
+
+    # ------------------------------------------------------------- elastic
+    def resize(self, n_devices: Optional[int] = None, mesh=None,
+               reason: str = "requested"):
+        """Drain, rebuild on a new device set, and resume mid-decode.
+
+        Pass the surviving ``n_devices`` (the lane mesh chosen by
+        ``runtime.elastic.choose_mesh_shape``, keeping the current TP
+        degree when it still divides, or the geometry this engine already
+        served at that count) or an explicit ``mesh``.  The model is
+        rebuilt with the old one's settings; the expert weights are
+        re-replicated (``models.moe.remap_expert_params``) only if the
+        physical expert count changed, else every weight tensor stays
+        where it is; the decode and prefill dispatch re-plan through the
+        engine's plan cache (a grow-back to a served geometry re-plans
+        nothing); the adaptive planner keeps its events; active sequences
+        resume by re-prefilling their host-side histories.  Returns the
+        recorded ``runtime.controller.ResizeEvent``.
+        """
+        assert self.elastic, "construct ServeEngine(..., elastic=True)"
+        from ..models.moe import (
+            EXPERT_WEIGHT_KEYS,
+            moe_param_specs,
+            remap_expert_params,
+        )
+        from ..runtime.controller import cache_delta_event
+        from ..runtime.elastic import (
+            MeshRequirements,
+            choose_mesh_shape,
+            make_mesh_from_devices,
+        )
+
+        old = self.model
+        old_n = old.mesh.size
+        before = self.plan_cache.counters()
+        t0 = now()
+        with _OBS.span("serve/resize", reason=reason, old_n=old_n) as sp:
+            if mesh is None:
+                seen = self._seen_geometries.get(int(n_devices))
+                if seen is not None:
+                    # a geometry this engine already served on: reusing
+                    # it keeps every cached plan and executor valid
+                    shape, axes = seen
+                else:
+                    old_tp = old.mesh.axes.get("model", 1)
+                    # divisors of a working TP degree still divide the model
+                    req = MeshRequirements(model_divisors=old_tp,
+                                           prefer_model=old_tp)
+                    shape, axes = choose_mesh_shape(int(n_devices), req)
+                mesh = make_mesh_from_devices(shape, axes)
+            self._seen_geometries[mesh.size] = (tuple(mesh.shape),
+                                                tuple(mesh.axis_names))
+            new_model = Model(
+                old.cfg, mesh=mesh, moe_mode=old.moe_mode,
+                ep_over_pods=old.ep_over_pods,
+                moe_cap_factor=old.moe_cap_factor,
+                machine_params=old.machine_params, device=old.device,
+            )
+            if old.cfg.family == "moe" and new_model.e_phys != old.e_phys:
+                # the lanes share the card: the remapped experts are made
+                # there, and every other tensor stays as it is
+                e_log = old.cfg.n_experts
+                params = dict(self.params)
+                blocks = dict(params["blocks"])
+                blocks["moe"] = remap_expert_params(
+                    blocks["moe"], e_log,
+                    old.e_phys // e_log, new_model.e_phys // e_log,
+                )
+                params["blocks"] = blocks
+                self.params = params
+            self.model = new_model
+            self._warm_plans()
+            if self.moe_plan is not None:
+                # the new EP lanes must own every physical expert row
+                rows = moe_param_specs(new_model.cfg, self.moe_plan)
+                for k in EXPERT_WEIGHT_KEYS:
+                    held = self.params["blocks"]["moe"][k].shape[1]
+                    if rows[k][-1][1] != held:
+                        raise ValueError(
+                            f"{k}: {held} physical experts, the EP lanes "
+                            f"own {rows[k][-1][1]}")
+            if self.adaptive:
+                events = self.planner.events if self.planner else []
+                self.planner = self._make_planner()
+                self.planner.events = events
+            # resume: re-prefill the surviving sequences on the new lanes
+            self.caches = None
+            if any(s is not None for s in self.slots):
+                self._prefill_slots()
+            sp.set(new_n=mesh.size)
+        event = cache_delta_event(self.plan_cache, before, reason, old_n,
+                                  mesh.size, now() - t0)
+        self.resize_events.append(event)
+        return event
 
     def step(self) -> List[Request]:
         """One engine step: admit if possible, then decode one token for the

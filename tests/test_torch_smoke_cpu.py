@@ -265,8 +265,9 @@ def test_chip_smoke_serve_phase_runs_on_cpu():
     the ample-capacity modes agree, the replay refuses all four planted
     faults (K6's last weight, K6 reading every lane's rows from lane 0,
     K7's q_offset, K7's decode combine without its last key split), every
-    K5-K7 path call and edge case is checked, and the adaptive engine
-    re-plans once after its routers are zeroed."""
+    K5-K7 path call and edge case is checked, the adaptive engine
+    re-plans once after its routers are zeroed, and the elastic engine's
+    resize 8 -> 4 lanes changes no function."""
     chip_smoke = _chip_smoke()
     res = chip_smoke.serve_run("cpu", reduced_config=True)
     assert set(res["modes"]) == set(chip_smoke.SERVE_MODES)
@@ -298,6 +299,19 @@ def test_chip_smoke_serve_phase_runs_on_cpu():
     assert ada["new_mode"] in ("a2a", "hier", "hier_dedup")
     assert ada["oracle_rel_err"] == 0.0        # the plain version itself
     assert ada["refits"] and ada["fitted"]["name"] == "online-refit"
+    # the elastic part: no pair dropped, 4 lanes equal to 8 layer by layer
+    # and whole, the resize equal to cold engines from the prompts and from
+    # the histories (and in float32), the planted faults refused
+    el = res["elastic"]
+    assert el["dropped"] == 0.0 and max(el["layer_err"]) == 0.0
+    assert el["lanes_rel_err"] == 0.0 and el["lanes_differ"] == 0
+    assert el["lane_fault"] > chip_smoke.SERVE_TOL["bfloat16"]
+    assert el["cold_split"] is None and max(el["cold_steps"]) == 0.0
+    assert el["same_rel_err"] == 0.0 and el["oracle_rel_err"] == 0.0
+    assert el["f32"]["tokens_equal"]
+    assert max(el["f32"]["steps"]) <= chip_smoke.F32_LOGIT_TOL
+    assert el["grow"]["plan_misses"] == 0 and el["grow"]["plan_hits"] > 0
+    assert el["planted"] > chip_smoke.LOGIT_TOL
     from repro_torch.obs import default_obs
     assert not default_obs().enabled and default_obs().tracer is None
 
