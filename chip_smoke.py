@@ -5,7 +5,7 @@ Run from the repository root with no arguments::
 
     python3 chip_smoke.py
 
-It drives the port's three paths on the card and fails (non-zero exit) if
+It drives the port's paths on the card and fails (non-zero exit) if
 any phase fails:
 
 1. builds the CUDA kernels K1-K8 from ``src/repro_torch/csrc``, one
@@ -72,7 +72,26 @@ any phase fails:
    kernels and through the plain versions of K7 and K8 (logits and greedy
    tokens must agree) and through the kernels with two K8 faults planted
    in the binding (the oracle must refuse both);
-7. partitioned, last: builds the hierarchy of the AMG phases' matrix by the
+7. dense serve (:func:`dense_run`): draws gemma3-1b (26 layers, d 256,
+   5 local layers at window 512 : 1 global) and qwen2-0.5b (24 layers,
+   d 64, a GQA group of 7) at full width and depth in bf16 (seeded) and
+   serves six requests (prompts of 520-1,100 tokens, so gemma3's local
+   caches start full and roll at every decode step) through
+   ``ServeEngine``, counting K7 calls and CUDA launches per prefill and
+   decode step (one call a layer, a decode call two launches); replays
+   every engine call through the plain K7 in bf16 (logits within 2^-5,
+   no clear-margin greedy flip) and under a fault planted in K7's binding
+   (gemma3's local layers at window 0; qwen2's decode reading its
+   caches' unfilled slots), which the oracle must refuse; holds every K7
+   call of one prefill and one decode step against the plain version in
+   bf16 and float32 and times the largest (gemma3's also its largest
+   windowed prefill call) from a cold L2 beside ``sdpa``; then
+   nemotron-4-15b and qwen2-vl-2b at full width with 4 layers (the vlm
+   with precomputed embeddings at M-RoPE positions whose three rows
+   differ): a prefill and 4 decode steps held to the plain K7; last K7's
+   causal prefill at d 64, 128, 192 and 256 on one grid (BH 16 and 7, T
+   1,100), each held to the plain K7 and timed per FLOP;
+8. partitioned, last: builds the hierarchy of the AMG phases' matrix by the
    distributed setup (``DistributedHierarchy.setup_partitioned``: PMIS,
    interpolation and the Galerkin SpGEMM over discovered exchanges), holds
    it level by level to the host hierarchy (identical splittings, A / P / R
@@ -84,7 +103,7 @@ any phase fails:
    within 1e-8) and resumes a solve from its third iterate (``x0``);
    then runs the dense executor (``bind_dense``) for every collective x
    variant on three count sets, bitwise equal to ``execute_numpy``, timed;
-8. verify: ``verify_hierarchy`` over the paper hierarchy in the flat and
+9. verify: ``verify_hierarchy`` over the paper hierarchy in the flat and
    blocked layouts (the flat one set up with ``REPRO_VERIFY=1``, so every
    plan, executor and dense executor is checked on insertion; the seconds
    by namespace printed) and over the partitioned hierarchy, the blocked
@@ -95,7 +114,7 @@ any phase fails:
    nonzero, a bucket dropped from K4's map, a swapped scatter index, an
    executor audited against a foreign plan, K7 over the shared-memory
    limit);
-9. elastic (:func:`elastic_phase`): the paper problem flat/off and
+10. elastic (:func:`elastic_phase`): the paper problem flat/off and
    blocked/off, each in a fresh ``PlanCache``: 3 V-cycles on 8 ranks, a
    heartbeat ``repartition`` to 4 (cold), 3 more from the 8-rank iterate
    (within 1e-12 of a cold 4-rank solve of 6), a grow-back to 8 that must
@@ -108,7 +127,7 @@ any phase fails:
    rebalance of host 2 with a ``straggler-refit``, the rebalanced solve
    below 1e-8) and two planted faults (a grow-back through a fresh cache
    reads cold; a resume from the 8-rank layout misses 1e-12);
-10. calibrate, last (no profiler): times the rate probes
+11. calibrate, last (no profiler): times the rate probes
    (``profile.probe_plans`` on ``Topology(8, 4)``, 16,384 values a
    message, every strategy), the paper problem's exchanges
    (``measure_exchange_seconds``), its SpMVs flat/off and blocked/off
@@ -129,15 +148,16 @@ any phase fails:
    fit and the card's own figures (:func:`card_figures`) against the host
    history, each level's choices beside ``LASSEN``'s and beside the faster
    measured SpMV;
-11. checks that each path launched each of its kernels (the AMG solves
+12. checks that each path launched each of its kernels (the AMG solves
    the launches per V-cycle of ``VCYCLE_LAUNCHES``, the partitioned solve
    K2 and K4, the calibrate phase K1, K2 and K4), and prints one JSON
    line with every kernel's record: calls (``launches``) and
    ``cuda_launches`` on the main path (K1-K4 also
    ``partitioned_launches`` and ``calibrate_launches``; every kernel its
-   ``elastic_launches``, K1, K2, K4 and K5-K7 above 0), ``ms`` by CUDA events,
-   ``device_ms`` and ``host_us`` (:func:`device_times`), bound, plain and
-   library times.
+   ``elastic_launches``, K1, K2, K4 and K5-K7 above 0; K7 its
+   ``dense_launches`` and, under ``dense``, the dense models' timed
+   calls), ``ms`` by CUDA events, ``device_ms`` and ``host_us``
+   (:func:`device_times`), bound, plain and library times.
 
 Its last line is ``{"ok": true, "device": {...}}``.  It uses no JAX.
 """
@@ -229,7 +249,8 @@ def device_times(fns: dict, on_card: bool, iters: int = 20,
     enough.  Means, not sums: the profiler was seen to record only some of
     a session's device events, so a sum would count the missing ones as
     zero.  A kernel is taken to launch ``round(events / calls)`` times a
-    call, at least once; a shortfall is logged."""
+    call, at least once; a shortfall is logged, and a session with no
+    device event at all gives device ms None."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -271,6 +292,28 @@ def device_times(fns: dict, on_card: bool, iters: int = 20,
         dev_us = sum(tot / n * per_call[e] for e, (tot, n) in kernels.items())
         out[k] = (dev_us / 1e3, host_us)
     return out
+
+
+SLEEP_CYCLES = 1 << 20       # about 0.6 ms of the card's clock
+
+
+def slept_event_ms(fn, iters: int) -> float:
+    """Median ms of ``fn``'s device work, each call between two CUDA events
+    queued behind a device sleep (``torch.cuda._sleep``) that outlasts the
+    host's issue of the call, so no launch gap falls between the events."""
+    import torch
+
+    times = []
+    for _ in range(iters):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
+        t0.record()
+        fn()
+        t1.record()
+        t1.synchronize()
+        times.append(t0.elapsed_time(t1))
+    return sorted(times)[len(times) // 2]
 
 
 def time_ms(fn, sync, iters: int = 20, warmup: int = 3) -> float:
@@ -2388,12 +2431,16 @@ def recording_serve_kernel_calls(calls: dict, phase: str):
         return saved["pack_combine_lanes"](buf, idx, w)
 
     def flash(q, k, v, **kw):
+        """K7's call as ``ops.attention`` makes it: each kv head repeated
+        over its group of query heads, (batch, heads) flattened."""
         B, H, Tq, d = q.shape
-        Tk = k.shape[2]
+        Tk, group = k.shape[2], H // k.shape[1]
         kv_len, scale = kw.get("kv_len"), kw.get("scale")
+        kr, vr = (k.repeat_interleave(group, dim=1),
+                  v.repeat_interleave(group, dim=1)) if group > 1 else (k, v)
         record("flash_attention_bh", dict(
-            q=q.reshape(B * H, Tq, d), k=k.reshape(B * H, Tk, d),
-            v=v.reshape(B * H, Tk, d),
+            q=q.reshape(B * H, Tq, d), k=kr.reshape(B * H, Tk, d),
+            v=vr.reshape(B * H, Tk, d),
             scale=float(d ** -0.5 if scale is None else scale),
             causal=bool(kw.get("causal", True)),
             window=int(kw.get("window", 0)),
@@ -2863,7 +2910,8 @@ def time_serve_call(name: str, a: dict, on_card: bool) -> dict:
     """Kernel, plain and library ms of the call (library None where no
     PyTorch call computes it), its bound, and the kernel's and the
     library's own device ms from a cold L2 (each call of
-    :func:`device_times` on the next of the :func:`cold_copies`) and the
+    :func:`device_times` on the next of the :func:`cold_copies`; the
+    kernel's also by :func:`slept_event_ms`, ``slept_ms``) and the
     kernel's host us per call."""
     import torch
 
@@ -2886,6 +2934,7 @@ def time_serve_call(name: str, a: dict, on_card: bool) -> dict:
         fns["library"] = lambda: next(libs)()
     t = device_times(fns, on_card)
     return dict(
+        slept_ms=slept_event_ms(fns["kernel"], 20) if on_card else None,
         ms=time_ms(kernel, on_card),
         plain_ms=time_ms(lambda: serve_plain_call(name, a), on_card),
         library_ms=None if library is None else time_ms(library, on_card),
@@ -2906,14 +2955,15 @@ def serve_call_shape(name: str, a: dict) -> str:
     if name == "combine_rows":
         return f"buf {list(a['buf'].shape)} idx {list(a['idx'].shape)}"
     return (f"q {list(a['q'].shape)} k {list(a['k'].shape)} kv_len "
-            f"{a['kv_len']} q_offset {a['q_offset']}")
+            f"{a['kv_len']} q_offset {a['q_offset']}"
+            + (f" window {a['window']}" if a["window"] else ""))
 
 
 def serve_kernel_phase(recorded: dict, on_card: bool) -> dict:
     """Every recorded K5-K8 call of one prefill and one decode step against
     its plain version; the largest prefill and decode call of each kernel
-    timed.  Returns per kernel its largest prefill call's record, the
-    decode record beside it."""
+    (by bytes, then operations) timed.  Returns per kernel its largest
+    prefill call's record, the decode record beside it."""
     results: dict = {}
     largest: dict = {}
     for (name, phase, *_), (n_calls, args) in recorded.items():
@@ -2922,8 +2972,8 @@ def serve_kernel_phase(recorded: dict, on_card: bool) -> dict:
             rec["max_abs_err"] = max(rec["max_abs_err"],
                                      check_serve_call(name, a, phase))
             rec["checked"] += 1
-            size = serve_work(name, a)[0]
-            if size > largest.get((name, phase), (-1, None))[0]:
+            size = serve_work(name, a)
+            if size > largest.get((name, phase), ((-1, -1), None))[0]:
                 largest[(name, phase)] = (size, a)
         log(f"kernel {name:18s} {phase:7s} {serve_call_shape(name, args[0])}:"
             f" {n_calls} calls, each within tolerance of its plain version "
@@ -2938,7 +2988,8 @@ def serve_kernel_phase(recorded: dict, on_card: bool) -> dict:
             f"{lib}, bound {t['bound_ms']:.4f} ms ({t['bound_by']}); device "
             f"ms from a cold L2 ({t['cold_copies']} copies) "
             f"{fmt_ms(t['device_ms'])} (library "
-            f"{fmt_ms(t['library_device_ms'])}), host us per call "
+            f"{fmt_ms(t['library_device_ms'])}; CUDA events behind a "
+            f"device sleep {fmt_ms(t['slept_ms'])}), host us per call "
             f"{fmt_ms(t['host_us'])}")
         if phase == "prefill":
             results[name].update(t)
@@ -3387,6 +3438,384 @@ def profile_serve(model, params, sizes: dict, on_card: bool) -> dict:
     return dict(wall_ms=wall_ms, busy_ms=busy_ms,
                 idle_share=1.0 - busy_ms / wall_ms,
                 device_ops=len(on_device), top_device=top)
+
+
+# ------------------------------------------------------- dense serve phase
+# served through ServeEngine at full width and depth: gemma3-1b (d 256,
+# one kv head, 5 local layers at window 512 : 1 global) and qwen2-0.5b
+# (d 64, 14 query heads over 2 kv heads: a GQA group of 7)
+DENSE_ARCHS = ("gemma3-1b", "qwen2-0.5b")
+# at full width with the depth cut to DENSE_CUT_LAYERS: one prefill and
+# DENSE_CUT_STEPS decode steps each, held to the plain K7 (d 128 both;
+# qwen2-vl-2b carries the vlm family's M-RoPE)
+DENSE_CUT_ARCHS = ("nemotron-4-15b", "qwen2-vl-2b")
+DENSE_CUT_LAYERS = 4
+DENSE_CUT_STEPS = 4
+# K7's bf16 causal prefill at one T and two BH for each head dim, so only
+# d changes within a BH: 16 (gemma3's prefill grid, 288 row blocks) and 7
+# (126 row blocks, one an SM at every d); PROBE_REPS calls back to back
+# between two CUDA events
+PROBE_HEAD_DIMS = (64, 128, 192, 256)
+PROBE_REPS = 8
+
+
+def dense_sizes(on_card: bool) -> dict:
+    """Six requests on four slots (3 prefills, 16 decode steps), every
+    prompt longer than gemma3's window (512; 16 in the reduced config), so
+    each local layer's cache starts full and rolls at every decode step;
+    and the cut models' one batch (``cut_batch`` rows of ``cut_prompt``
+    tokens).  Off the card, the CPU rehearsal's sizes."""
+    if on_card:
+        return dict(slots=4, max_len=1280,
+                    prompts=(520, 1100, 760, 640, 980, 830),
+                    new=(8, 12, 10, 6, 8, 8), cut_batch=2, cut_prompt=600,
+                    probe_bh=(16, 7), probe_t=1100)
+    return dict(slots=4, max_len=48, prompts=(20, 30, 24, 18, 27, 22),
+                new=(3, 4, 2, 3, 4, 2), cut_batch=2, cut_prompt=20,
+                probe_bh=(2,), probe_t=40)
+
+
+def dense_faults(cfg) -> dict:
+    """The dense model bound to K7 with a fault planted in the binding (the
+    source untouched), one for each served model's path: gemma3's local
+    layers at window 0 (every earlier key seen, not the last ``window``);
+    for a model without windows (qwen2-0.5b, whose caches hold max_len
+    slots), a decode call that takes its cache as full (kv_len = Tk,
+    q_offset = Tk - 1), so it reads the unfilled slots."""
+    from repro_torch.kernels.flash_attention import attention
+
+    def window_zero(q, k, v, **kw):
+        return attention(q, k, v, **dict(kw, window=0))
+
+    def reads_unfilled(q, k, v, **kw):
+        if q.shape[2] != 1:
+            return attention(q, k, v, **kw)
+        Tk = k.shape[2]
+        return attention(q, k, v, **dict(kw, kv_len=Tk, q_offset=Tk - 1))
+
+    if cfg.window:
+        return {"K7 at window 0 on the local layers": bound_kernels(
+            flash=window_zero)}
+    return {"K7's decode reads the unfilled cache slots (kv_len = Tk)":
+            bound_kernels(flash=reads_unfilled)}
+
+
+def free_card(on_card: bool) -> None:
+    """Collect the garbage and hand the freed blocks back to the card."""
+    import torch
+
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+
+
+def draw_dense(cfg, device: str, on_card: bool):
+    """(model, params) of ``cfg`` drawn on ``device`` from ``SERVE_SEED``,
+    described in one line."""
+    import torch
+
+    from repro_torch.models import Model
+
+    t0 = time.perf_counter()
+    model = Model(cfg, device=device)
+    params = model.init_params(seed=SERVE_SEED)
+    card_sync(on_card)
+    n_params, n_bytes = count_params(params)
+    n_local = cfg.n_layers - model.windows.count(0)
+    log(f"dense: {cfg.name}, {cfg.n_layers} layers ("
+        + (f"{n_local} at window {cfg.window}, "
+           f"{cfg.n_layers - n_local} global" if n_local else "all global")
+        + f"), d_model {cfg.d_model}, {cfg.n_heads} query heads "
+        f"over {cfg.n_kv_heads} kv heads of {cfg.head_dim}, vocab "
+        f"{cfg.vocab}, {cfg.act}, {cfg.dtype}; {n_params:,} parameters, "
+        f"{n_bytes / 1e9:.2f} GB on {device}, drawn in "
+        f"{time.perf_counter() - t0:.2f} s"
+        + (f"; {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated"
+           if on_card else ""))
+    return model, params, n_params, n_bytes
+
+
+def dense_engine_run(cfg, device: str, on_card: bool, sizes: dict) -> dict:
+    """One dense model served: six requests through ``ServeEngine``, K7's
+    calls and CUDA launches per prefill and decode step (on the card
+    n_layers each, a decode call two launches), every engine call replayed
+    through the plain K7 in bf16 (logits within ``LOGIT_TOL``, no
+    clear-margin greedy flip) and under its planted fault (refused), every
+    K7 call of one prefill and one decode step against the plain version,
+    the largest timed (and, with windows, the largest windowed prefill
+    call)."""
+    import torch
+
+    from repro_torch.kernels import CUDA_LAUNCHES, LAUNCHES, reset_launches
+    from repro_torch.serve import ServeEngine
+
+    name = "flash_attention_bh"
+    model, params, n_params, n_bytes = draw_dense(cfg, device, on_card)
+    warm_up(model, params, sizes)
+    recorded: dict = {}
+    reset_launches()
+    eng = ServeEngine(model, params, batch_slots=sizes["slots"],
+                      max_len=sizes["max_len"])
+    calls = recording_engine(eng, on_card, recorded)
+    for r in serve_requests(cfg.vocab, sizes):
+        eng.submit(r)
+    t0 = time.perf_counter()
+    done = eng.run_until_drained()
+    card_sync(on_card)
+    wall = time.perf_counter() - t0
+    check_served(done, sizes, cfg.vocab, f"dense {cfg.name}")
+    summ = serve_summary(calls, (name,))
+    summ.update(wall_s=wall, tokens={r.rid: r.generated for r in done},
+                launches=LAUNCHES[name], cuda_launches=CUDA_LAUNCHES[name],
+                n_params=n_params, n_bytes=n_bytes)
+    log(f"dense {cfg.name}: {len(done)} requests in {wall:.2f} s; "
+        f"{summ['prefills']} prefills, {summ['prefill_tokens']} tokens, "
+        f"{summ['prefill_tok_s']:.1f} prefill tokens/s; "
+        f"{summ['decode_steps']} decode steps, {summ['decode_ms']:.3f} ms "
+        f"per step; K7 calls per prefill "
+        f"{summ['launches_per_prefill'][name]:g}, per decode step "
+        f"{summ['launches_per_decode'][name]:g} (CUDA launches "
+        f"{summ['cuda_launches_per_prefill'][name]:g} and "
+        f"{summ['cuda_launches_per_decode'][name]:g})")
+    if on_card:
+        L = cfg.n_layers
+        for key, want in (("launches_per_prefill", L),
+                          ("cuda_launches_per_prefill", L),
+                          ("launches_per_decode", L),
+                          ("cuda_launches_per_decode", 2 * L)):
+            if summ[key][name] != want:
+                fail(f"dense {cfg.name}: K7 {key} {summ[key][name]}, "
+                     f"expected {want}")
+    if not all(bool(torch.isfinite(c["logits"]).all()) for c in calls):
+        fail(f"dense {cfg.name}: non-finite logits")
+
+    res = replay_plain(model, params, eng, calls, [], on_card,
+                       faults=dense_faults(cfg))
+    summ.update(res)
+    log(f"oracle dense {cfg.name}: {len(calls)} engine calls through the "
+        "plain K7 in bf16; max |logit diff| / max |logit| "
+        f"{res['oracle_rel_err']:.3e} (tolerance {LOGIT_TOL}); greedy "
+        f"tokens equal on all {res['oracle_sure']} of {res['oracle_rows']} "
+        "rows with a top-2 margin above it")
+    for fault, got in res["planted"].items():
+        log(f"oracle dense {cfg.name} refuses a planted fault, {fault}: max "
+            f"|logit diff| / max |logit| {got['rel_err']:.3e}, greedy tokens "
+            f"differ on {got['differ']} of {got['sure']} rows with a clear "
+            "margin")
+
+    kernel = serve_kernel_phase(recorded, on_card)[name]
+    windowed = [a for (_, phase, *_), (_, args) in recorded.items()
+                if phase == "prefill" for a in args if a["window"] > 0]
+    if windowed:
+        a = max(windowed, key=lambda a: serve_work(name, a))
+        t = time_serve_call(name, a, on_card)
+        log(f"  {name} largest windowed prefill call "
+            f"({serve_call_shape(name, a)}, "
+            f"{t['mbytes']:.2f} MB, {t['gflop']:.3f} GFLOP): kernel "
+            f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library "
+            f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+            f"({t['bound_by']}); device ms from a cold L2 "
+            f"{fmt_ms(t['device_ms'])} (library "
+            f"{fmt_ms(t['library_device_ms'])}; CUDA events behind a "
+            f"device sleep {fmt_ms(t['slept_ms'])}), host us per call "
+            f"{fmt_ms(t['host_us'])}")
+        kernel["window_prefill"] = t
+    recorded.clear()
+    if on_card:
+        summ["profile"] = prof = profile_serve(model, params, sizes, on_card)
+        log(f"dense {cfg.name} profile (4 requests): wall "
+            f"{prof['wall_ms']:.1f} ms, device busy {prof['busy_ms']:.1f} "
+            f"ms, idle share {prof['idle_share']:.3f}, "
+            f"{prof['device_ops']} device ops; most device ms: "
+            f"{prof['top_device']}")
+    del params, model, eng, calls
+    free_card(on_card)
+    return dict(summary=summ, kernel=kernel)
+
+
+def vlm_positions(B: int, T: int, device):
+    """Qwen2-VL's M-RoPE ids for an image of T // 2 patches on a grid 16
+    wide (time 0, row, column) followed by T - T // 2 text tokens (all
+    three rows the text position): [B, 3, T], the rows differing."""
+    import torch
+
+    n_img = T // 2
+    i = torch.arange(n_img)
+    img = torch.stack([torch.zeros_like(i), i // 16, i % 16])
+    text = (int(img.max()) + 1 + torch.arange(T - n_img)).expand(3, -1)
+    return torch.cat([img, text], dim=1).expand(B, 3, T).to(
+        device, torch.int32).contiguous()
+
+
+def dense_cut_run(cfg, device: str, on_card: bool, sizes: dict) -> dict:
+    """A dense or vlm model at full width and ``DENSE_CUT_LAYERS`` layers:
+    one prefill (token ids; for the vlm precomputed embeddings at
+    :func:`vlm_positions`) and ``DENSE_CUT_STEPS`` greedy decode steps
+    through the kernels, then again through the plain K7 fed the same
+    tokens: logits within ``LOGIT_TOL`` with no clear-margin greedy flip;
+    every K7 call of the prefill and of the first decode step against the
+    plain version, the largest of each timed."""
+    import torch
+
+    from repro_torch.kernels import CUDA_LAUNCHES, LAUNCHES, reset_launches
+    from repro_torch.models import serving
+
+    name = "flash_attention_bh"
+    depth = cfg.n_layers
+    cfg = dataclasses.replace(cfg, n_layers=min(depth, DENSE_CUT_LAYERS))
+    model, params, n_params, n_bytes = draw_dense(cfg, device, on_card)
+    B, T = sizes["cut_batch"], sizes["cut_prompt"]
+    gen = torch.Generator().manual_seed(SERVE_SEED)
+    if cfg.family == "vlm":
+        inputs = {"embeds": torch.randn(B, T, cfg.d_model, generator=gen)
+                  .to(device, cfg.dtype),
+                  "positions": vlm_positions(B, T, device)}
+    else:
+        inputs = {"tokens": torch.randint(0, cfg.vocab, (B, T), generator=gen,
+                                          dtype=torch.int32).to(device)}
+    recorded: dict = {}
+
+    def drive(binding, feed=None, record=False):
+        """The prefill and the decode steps under ``binding``, fed
+        ``feed`` (else the greedy tokens): (logits, tokens fed)."""
+        out, fed = [], []
+        with binding:
+            with (recording_serve_kernel_calls(recorded, "prefill")
+                  if record else contextlib.nullcontext()):
+                logits, caches = serving.prefill(model, params, inputs,
+                                                 max_len=sizes["max_len"])
+            out.append(logits.float().cpu())
+            for s in range(DENSE_CUT_STEPS):
+                tok = (feed[s] if feed is not None else torch.argmax(
+                    logits, -1).to(torch.int32)[:, None])
+                fed.append(tok)
+                with (recording_serve_kernel_calls(recorded, "decode")
+                      if record and s == 0 else contextlib.nullcontext()):
+                    logits, caches = serving.decode_step(
+                        model, params, {"tokens": tok}, caches, T + s)
+                out.append(logits.float().cpu())
+        card_sync(on_card)
+        return out, fed
+
+    drive(contextlib.nullcontext())                 # first launches
+    reset_launches()
+    t0 = time.perf_counter()
+    got, fed = drive(contextlib.nullcontext(), record=True)
+    wall = time.perf_counter() - t0
+    launches, cuda = LAUNCHES[name], CUDA_LAUNCHES[name]
+    L = cfg.n_layers
+    want = (L * (1 + DENSE_CUT_STEPS), L * (1 + 2 * DENSE_CUT_STEPS))
+    if on_card and (launches, cuda) != want:
+        fail(f"dense {cfg.name}: K7 calls and CUDA launches "
+             f"{(launches, cuda)}, expected {want}")
+    plain, _ = drive(plain_kernels(), feed=fed)
+    if not all(bool(torch.isfinite(lg).all()) for lg in got + plain):
+        fail(f"dense {cfg.name}: non-finite logits")
+    res = compare_logits(got, plain)
+    if not res["rel_err"] <= LOGIT_TOL or res["differ"]:
+        fail(f"dense {cfg.name}: logits {res['rel_err']:.3e} of their max "
+             f"off the plain K7 (tolerance {LOGIT_TOL}), greedy tokens "
+             f"differ on {res['differ']} clear-margin rows")
+    kernel = serve_kernel_phase(recorded, on_card)[name]
+    what = ("embeddings, M-RoPE rows differing" if cfg.family == "vlm"
+            else "tokens")
+    log(f"dense {cfg.name} ({L} of {depth} layers): a prefill of {B} x {T} "
+        f"{what} and {DENSE_CUT_STEPS} decode steps in {wall:.2f} s; K7 "
+        f"calls {launches} (CUDA launches {cuda}); against the plain K7: "
+        f"max |logit diff| / max |logit| {res['rel_err']:.3e} (tolerance "
+        f"{LOGIT_TOL}), greedy tokens equal on all {res['sure']} of "
+        f"{res['rows']} rows with a clear margin")
+    recorded.clear()
+    del params, model, inputs
+    free_card(on_card)
+    return dict(launches=launches, cuda_launches=cuda, wall_s=wall,
+                n_params=n_params, n_bytes=n_bytes,
+                oracle_rel_err=res["rel_err"], oracle_sure=res["sure"],
+                oracle_rows=res["rows"], kernel=kernel)
+
+
+def head_dim_probe(device: str, on_card: bool, sizes: dict) -> list:
+    """K7's bf16 causal prefill on seeded q / k / v of ``probe_t`` rows at
+    each BH of ``probe_bh`` and each of ``PROBE_HEAD_DIMS``: within a BH
+    the grid is the same and only d changes (with it the shared memory a
+    block, so blocks an SM, and the registers: d 192 and 256 spill), so
+    the device time per FLOP tells what a larger d costs.  Each call held
+    to the plain version (:func:`check_serve_call`); device ms by the
+    profiler (:func:`device_times`, None where it records nothing) and by
+    CUDA events behind a device sleep around ``PROBE_REPS`` calls back to
+    back, per call; warm L2."""
+    import torch
+
+    name = "flash_attention_bh"
+    T = sizes["probe_t"]
+    out = []
+    for BH in sizes["probe_bh"]:
+        for d in PROBE_HEAD_DIMS:
+            gen = torch.Generator().manual_seed(SERVE_SEED + d)
+            q, k, v = (torch.randn(BH, T, d, generator=gen).to(
+                device, torch.bfloat16) for _ in range(3))
+            a = dict(q=q, k=k, v=v, scale=d ** -0.5, causal=True, window=0,
+                     kv_len=T, q_offset=0)
+            err = check_serve_call(name, a, f"head-dim probe d {d}")
+            nbytes, flops = serve_work(name, a)
+
+            def call(a=a):
+                return serve_kernel_call(name, a)
+
+            dev_ms = device_times({"kernel": call}, on_card)["kernel"][0]
+            ev_ms = (slept_event_ms(
+                lambda: [call() for _ in range(PROBE_REPS)], 10) / PROBE_REPS
+                if on_card else None)
+            rate = {by: None if t is None else flops / t / 1e9
+                    for by, t in (("device", dev_ms), ("events", ev_ms))}
+            out.append(dict(bh=BH, t=T, d=d, gflop=flops / 1e9,
+                            mbytes=nbytes / 1e6, max_abs_err=err,
+                            device_ms=dev_ms, event_ms=ev_ms,
+                            device_tflops=rate["device"],
+                            event_tflops=rate["events"]))
+            log(f"  {name} head-dim probe [{BH}, {T}, {d}] causal: "
+                f"{flops / 1e9:.3f} GFLOP, max |err| {err:.3e}; device ms "
+                f"{fmt_ms(dev_ms)}, CUDA events {fmt_ms(ev_ms)} a call of "
+                f"{PROBE_REPS}; TFLOP/s "
+                + " / ".join("not measured" if r is None else f"{r:.1f}"
+                             for r in rate.values()))
+            del q, k, v, a
+    return out
+
+
+def dense_run(device: str = "cuda", reduced_config: bool = False) -> dict:
+    """The dense serve phase (full configs on the card, the reduced ones
+    for the CPU rehearsal): ``DENSE_ARCHS`` through the engine
+    (:func:`dense_engine_run`), ``DENSE_CUT_ARCHS`` cut to
+    ``DENSE_CUT_LAYERS`` layers (:func:`dense_cut_run`), then K7 at each
+    head dim on one grid (:func:`head_dim_probe`).  Returns each model's
+    record, K7's calls and CUDA launches over the phase and its record:
+    the first served model's timed calls (each model's under ``by_arch``),
+    the probe's (``head_dim_probe``) and the largest bf16 error of every
+    model's checks."""
+    from repro_torch import configs
+
+    on_card = device == "cuda"
+    get = configs.reduced if reduced_config else configs.get
+    sizes = dense_sizes(on_card)
+    t0 = time.perf_counter()
+    served = {arch: dense_engine_run(get(arch), device, on_card, sizes)
+              for arch in DENSE_ARCHS}
+    cut = {arch: dense_cut_run(get(arch), device, on_card, sizes)
+           for arch in DENSE_CUT_ARCHS}
+    probe = head_dim_probe(device, on_card, sizes)
+    name = "flash_attention_bh"
+    kernel = dict(served[DENSE_ARCHS[0]]["kernel"])
+    kernel["head_dim_probe"] = probe
+    kernel["max_abs_err"] = max(r["kernel"]["max_abs_err"]
+                                for r in (*served.values(), *cut.values()))
+    kernel["by_arch"] = {arch: r["kernel"]
+                         for arch, r in {**served, **cut}.items()}
+    runs = [r["summary"] for r in served.values()] + list(cut.values())
+    return dict(served=served, cut=cut, kernels={name: kernel},
+                launches={name: sum(r["launches"] for r in runs)},
+                cuda_launches={name: sum(r["cuda_launches"] for r in runs)},
+                seconds=time.perf_counter() - t0)
 
 
 # ------------------------------------------------------------ adaptive phase
@@ -4255,6 +4684,10 @@ def main() -> int:
     done("hybrid")
     gc.collect()
     torch.cuda.empty_cache()            # zamba2's weights leave the card
+    dense = dense_run("cuda")
+    if dense["launches"]["flash_attention_bh"] <= 0:
+        fail("K7 never launched on the dense path")
+    done("dense")
     part_res = partitioned_run(res)
     part = part_res["partitioned"]["launches"]
     missing = [k for k in ("spmv_ell_blocked", "spmv_ell_blocked_skip")
@@ -4294,24 +4727,37 @@ def main() -> int:
             elastic_launches=elastic["launches"][name],
             max_abs_err=rec["max_abs_err"],
             **{k: rec[k] for k in timing}))
-    # K7 runs on both serve paths: its launches are both paths' and its
-    # times those of its largest DeepSeek prefill call
+    # K7 runs on the three serve paths: its launches are theirs and its
+    # times those of its largest DeepSeek prefill call; the dense path's
+    # timed calls (gemma3-1b's d 256, qwen2-0.5b's d 64) under "dense"
+    paths = (serve, hybrid, dense)
     for name, (source, replaces) in {**SERVE_SOURCES,
                                      **HYBRID_SOURCES}.items():
         path = serve if name in SERVE_SOURCES else hybrid
         rec = path["kernels"][name]
-        err = max(p["kernels"][name]["max_abs_err"] for p in (serve, hybrid)
+        err = max(p["kernels"][name]["max_abs_err"] for p in paths
                   if name in p["kernels"])
+        extra = {}
+        if name in dense["kernels"]:
+            extra["dense_launches"] = dense["launches"][name]
+            keys = timing + ("slept_ms",)
+            extra["dense"] = {
+                arch: {part: {k: t[part][k] for k in keys}
+                       for part in ("decode", "window_prefill") if part in t}
+                | {"prefill": {k: t[k] for k in keys}}
+                for arch, t in dense["kernels"][name]["by_arch"].items()}
+            extra["head_dim_probe"] = dense["kernels"][name]["head_dim_probe"]
         records.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=sum(p["launches"].get(name, 0) for p in (serve, hybrid)),
+            launches=sum(p["launches"].get(name, 0) for p in paths),
             cuda_launches=sum(p["cuda_launches"].get(name, 0)
-                              for p in (serve, hybrid)),
+                              for p in paths),
             elastic_launches=serve["elastic"]["launches"].get(name, 0),
             max_abs_err=err, **{k: rec[k] for k in timing},
             **({"decode": {k: rec["decode"][k] for k in timing}}
                if "decode" in rec else {}),
-            **({"split": rec["split"]} if "split" in rec else {})))
+            **({"split": rec["split"]} if "split" in rec else {}),
+            **extra))
     print(json.dumps({"kernels": records}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,6 @@
-"""LM stack of the port: the MoE family with MLA attention (DeepSeek-V2),
-the ssm family (Mamba-2) and the hybrid family (Zamba2)."""
+"""LM stack of the port: the dense and vlm families (GQA transformer
+blocks), the MoE family with MLA attention (DeepSeek-V2), the ssm family
+(Mamba-2) and the hybrid family (Zamba2)."""
 from .common import ArchConfig, Mesh
 from .lm import Model
 

@@ -2,13 +2,15 @@
 decoupled RoPE).
 
 Ported from ``repro.models.attention`` (``init_gqa``, ``gqa_project_qkv``,
-``gqa_project_out``, ``gqa_attention``, ``init_mla``, ``mla_attention``).
-Qwen-style ``qkv_bias`` / ``qk_norm``, M-RoPE and cross-attention
-(``kv_x``, ``gqa_cross_from_cache``, ``project_cross_kv``) are still to port
-(ROADMAP Queue 1 item 6) and raise ``NotImplementedError``.  The attention
-itself runs through K7 (:mod:`repro_torch.kernels.flash_attention`), always
-by this module's ``flash``: the serving and hybrid call sites go through
-it too, so that binding ``attention.flash`` reaches every K7 call.
+``gqa_project_out``, ``gqa_attention``, ``init_mla``, ``mla_attention``),
+GQA with Qwen-style ``qkv_bias``, gemma3's per-head ``qk_norm`` and
+Qwen2-VL's M-RoPE (positions ``[B, 3, T]``).  Cross-attention (``kv_x``,
+``gqa_cross_from_cache``, ``project_cross_kv``) is still to port with the
+audio family (ROADMAP Queue 1): a ``kv_x`` raises
+``NotImplementedError``.  The attention itself runs through K7
+(:mod:`repro_torch.kernels.flash_attention`), always by this module's
+``flash``: the serving and hybrid call sites go through it too, so that
+binding ``attention.flash`` reaches every K7 call.
 
 Cache contract (as in ``repro``): without a cache the call attends over its
 own T tokens; with a cache the new entries are written at ``kv_len`` and
@@ -25,7 +27,7 @@ import torch
 import torch.nn.functional as tf
 
 from ..kernels.flash_attention import attention as flash
-from .common import ArchConfig, Initializer, apply_rope, rms_norm
+from .common import ArchConfig, Initializer, apply_mrope, apply_rope, rms_norm
 
 
 # ---------------------------------------------------------------------------
@@ -33,44 +35,63 @@ from .common import ArchConfig, Initializer, apply_rope, rms_norm
 # ---------------------------------------------------------------------------
 
 
-def _check_gqa(cfg: ArchConfig) -> None:
-    if cfg.qkv_bias or cfg.qk_norm or cfg.mrope_sections is not None:
+def _check_gqa(cfg: ArchConfig, kv_x) -> None:
+    if kv_x is not None:
         raise NotImplementedError(
-            f"{cfg.name}: GQA with qkv_bias / qk_norm / M-RoPE is not ported "
-            "yet (ROADMAP Queue 1 item 6)")
+            f"{cfg.name}: cross-attention (kv_x) is not ported yet; it comes "
+            "with the audio family (ROADMAP Queue 1)")
 
 
 def init_gqa(init: Initializer, cfg: ArchConfig, L: int,
              d_in: int = 0) -> Dict:
-    _check_gqa(cfg)
     d = d_in or cfg.d_model
     dh = cfg.head_dim
-    return {
+    p = {
         "wq": init.tensor((L, d, cfg.n_heads * dh), fan_in=d),
         "wk": init.tensor((L, d, cfg.n_kv_heads * dh), fan_in=d),
         "wv": init.tensor((L, d, cfg.n_kv_heads * dh), fan_in=d),
         "wo": init.tensor((L, cfg.n_heads * dh, cfg.d_model),
                           fan_in=cfg.n_heads * dh),
     }
+    if cfg.qkv_bias:
+        p["bq"] = init.tensor((L, cfg.n_heads * dh), zero=True)
+        p["bk"] = init.tensor((L, cfg.n_kv_heads * dh), zero=True)
+        p["bv"] = init.tensor((L, cfg.n_kv_heads * dh), zero=True)
+    if cfg.qk_norm:
+        p["q_norm"] = init.tensor((L, dh), zero=True)
+        p["k_norm"] = init.tensor((L, dh), zero=True)
+    return p
 
 
 def gqa_project_qkv(
     p: Dict,
     x: torch.Tensor,               # [B, T, d]
-    positions: torch.Tensor,       # [B, T]
+    positions: torch.Tensor,       # [B, T] (or [B, 3, T] with M-RoPE)
     cfg: ArchConfig,
     rope: bool = True,
+    kv_x: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Project and rope q / k / v -> [B, H(q|kv), T, dh]."""
-    _check_gqa(cfg)
+    """Project and (M-)rope q / k / v -> [B, H(q|kv), T, dh]: the bias
+    before the head split, the qk-norm before the rope, as ``repro``."""
+    _check_gqa(cfg, kv_x)
     B, T, _ = x.shape
     dh = cfg.head_dim
-    q = (x @ p["wq"]).reshape(B, T, cfg.n_heads, dh).transpose(1, 2)
-    k = (x @ p["wk"]).reshape(B, T, cfg.n_kv_heads, dh).transpose(1, 2)
-    v = (x @ p["wv"]).reshape(B, T, cfg.n_kv_heads, dh).transpose(1, 2)
+    q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = q.reshape(B, T, cfg.n_heads, dh).transpose(1, 2)
+    k = k.reshape(B, T, cfg.n_kv_heads, dh).transpose(1, 2)
+    v = v.reshape(B, T, cfg.n_kv_heads, dh).transpose(1, 2)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"])
+        k = rms_norm(k, p["k_norm"])
     if rope:
-        q = apply_rope(q, positions, cfg.rope_theta, cfg.partial_rotary)
-        k = apply_rope(k, positions, cfg.rope_theta, cfg.partial_rotary)
+        if cfg.mrope_sections is not None:
+            q = apply_mrope(q, positions, cfg.rope_theta, cfg.mrope_sections)
+            k = apply_mrope(k, positions, cfg.rope_theta, cfg.mrope_sections)
+        else:
+            q = apply_rope(q, positions, cfg.rope_theta, cfg.partial_rotary)
+            k = apply_rope(k, positions, cfg.rope_theta, cfg.partial_rotary)
     return q, k, v
 
 
@@ -93,12 +114,14 @@ def write_cache(cache: torch.Tensor, new: torch.Tensor, start: int) -> None:
 def gqa_attention(
     p: Dict,                       # single-layer slice of init_gqa params
     x: torch.Tensor,               # [B, T, d]
-    positions: torch.Tensor,       # [B, T]
+    positions: torch.Tensor,       # [B, T] (or [B, 3, T] with M-RoPE)
     cfg: ArchConfig,
     window: int = 0,
     cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,  # [B,Hkv,S,dh]
     kv_len: Optional[int] = None,  # filled entries
+    kv_x: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Optional[Tuple[torch.Tensor, torch.Tensor]]]:
+    _check_gqa(cfg, kv_x)
     T = x.shape[1]
     q, k, v = gqa_project_qkv(p, x, positions, cfg)
     new_cache = None

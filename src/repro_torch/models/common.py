@@ -3,7 +3,8 @@
 Ported from ``repro.models.common``.  :class:`ArchConfig` keeps the
 reference's fields and defaults (``dtype`` defaults to bfloat16).
 Parameters are plain dicts of tensors, per-layer parameters stacked on a
-leading layer dim, as in ``repro``.
+leading layer dim, as in ``repro``.  ``count_params_analytic`` and
+``apply_mrope`` (Qwen2-VL's sectioned RoPE) are ``repro``'s.
 
 :class:`Mesh` stands in for a JAX device mesh: the port runs every device
 of the mesh as a lane stacked on one card, so a mesh is only its axis names
@@ -94,6 +95,79 @@ class ArchConfig:
     @property
     def n_ssm_heads(self) -> int:
         return self.d_inner // self.ssm_head_dim
+
+    def layer_is_global(self, i: int) -> bool:
+        """gemma3-style 5 local : 1 global pattern."""
+        if self.local_global_period <= 0:
+            return True
+        return (i + 1) % self.local_global_period == 0
+
+    def param_count(self) -> int:
+        """Analytic parameter count."""
+        return count_params_analytic(self)
+
+
+def count_params_analytic(c: ArchConfig) -> int:
+    """``repro``'s analytic count, term for term, for the families the port
+    builds (the audio family and the moe family without MLA raise)."""
+    dh = c.head_dim
+    n = 0
+    n += c.vocab * c.d_model                      # embed
+    if not c.tie_embeddings:
+        n += c.vocab * c.d_model                  # lm head
+    mlp_mats = 3 if c.gated_mlp else 2
+    if c.family in ("dense", "vlm"):
+        per = (
+            c.d_model * (c.n_heads * dh)          # q
+            + 2 * c.d_model * (c.n_kv_heads * dh)  # k, v
+            + (c.n_heads * dh) * c.d_model        # o
+            + mlp_mats * c.d_model * c.d_ff       # (gate/)up/down
+            + 2 * c.d_model                       # norms
+        )
+        n += c.n_layers * per
+    elif c.family == "moe":
+        if not c.mla:
+            raise NotImplementedError(
+                f"{c.name}: the moe family without MLA is not ported yet")
+        att = (
+            c.d_model * (c.n_heads * (c.qk_nope_dim + c.qk_rope_dim))
+            + c.d_model * (c.kv_lora + c.qk_rope_dim)
+            + c.kv_lora * (c.n_heads * (c.qk_nope_dim + c.v_head_dim))
+            + (c.n_heads * c.v_head_dim) * c.d_model
+        )
+        ffe = 3 * c.d_model * c.d_ff_expert
+        dense_ff = 3 * c.d_model * c.d_ff if c.d_ff else 0
+        moe_layers = c.n_layers - c.first_dense_layers
+        n += c.n_layers * (att + 2 * c.d_model)
+        n += c.first_dense_layers * dense_ff
+        n += moe_layers * (
+            c.n_experts * ffe
+            + c.n_shared_experts * ffe
+            + c.d_model * c.n_experts
+        )
+    elif c.family in ("ssm", "hybrid"):
+        di = c.d_inner
+        H = c.n_ssm_heads
+        per = (
+            c.d_model * (2 * di + 2 * c.ssm_groups * c.ssm_state + H)  # in
+            + c.d_conv * (di + 2 * c.ssm_groups * c.ssm_state)         # conv
+            + 3 * H                                         # A, D, dt_bias
+            + di * c.d_model                                           # out
+            + 2 * c.d_model
+        )
+        n += c.n_layers * per
+        if c.family == "hybrid":
+            n += c.n_shared_attn_blocks * (
+                (2 * c.d_model) * (c.n_heads * dh)    # q from concat(2d)
+                + 2 * (2 * c.d_model) * (c.n_kv_heads * dh)
+                + (c.n_heads * dh) * c.d_model
+                + 3 * c.d_model * c.d_ff
+                + 2 * c.d_model
+            )
+    else:
+        raise NotImplementedError(
+            f"{c.name}: the {c.family} family is not ported yet")
+    return n
 
 
 @dataclass(frozen=True)
@@ -191,6 +265,28 @@ def apply_rope(
     if dh_rot < dh:
         return torch.cat([rot, x[..., dh_rot:]], dim=-1)
     return rot
+
+
+def apply_mrope(
+    x: torch.Tensor,            # [B, H, T, dh]
+    positions3: torch.Tensor,   # [B, 3, T] (t, h, w) position ids
+    theta: float,
+    sections: Tuple[int, int, int],
+) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE: the frequency pairs split into (t, h, w)
+    sections, each rotated by its own row of ``positions3``."""
+    dh = x.shape[-1]
+    cdt = compute_dtype(x.dtype)
+    freqs = rope_freqs(dh, theta, dtype=cdt, device=x.device)   # [dh/2]
+    sec = torch.cat([torch.full((s,), i, dtype=torch.long, device=x.device)
+                     for i, s in enumerate(sections)])          # [dh/2]
+    pos = positions3.to(cdt).index_select(1, sec)               # [B,dh/2,T]
+    ang = pos.transpose(1, 2)[:, None] * freqs                  # [B,1,T,dh/2]
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    xf = x.to(cdt)
+    x1, x2 = xf[..., ::2], xf[..., 1::2]
+    rot = torch.stack([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return rot.reshape(x.shape).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -1,12 +1,15 @@
-"""Model assembly for the ``moe`` family with MLA attention (DeepSeek-V2),
-the ``ssm`` family (Mamba-2) and the ``hybrid`` family (Zamba2).
+"""Model assembly for the ``dense`` and ``vlm`` families (GQA transformer
+blocks), the ``moe`` family with MLA attention (DeepSeek-V2), the ``ssm``
+family (Mamba-2) and the ``hybrid`` family (Zamba2).
 
-Ported from ``repro.models.lm``: ``Model`` with ``init_params``,
-``_positions``, ``_embed_in``, ``_logits`` and ``forward`` ->
-``_forward_moe`` / the SSM layer loop / ``_forward_hybrid`` (with
-``_shared_attn_block``).  The other families (dense, vlm, audio) and the
-moe family with GQA attention are still to port (ROADMAP Queue 1 item 6)
-and raise ``NotImplementedError``.
+Ported from ``repro.models.lm``: ``Model`` with its per-layer window
+schedule ``windows`` (gemma3's 5 local : 1 global), ``init_params``,
+``_positions`` (M-RoPE's ``[B, 3, T]`` for vlm), ``_embed_in`` (token ids,
+or precomputed ``embeds`` for the vlm frontend stub), ``_logits`` and
+``forward`` -> the dense block loop / ``_forward_moe`` / the SSM layer loop
+/ ``_forward_hybrid`` (with ``_shared_attn_block``).  The audio family and
+the moe family with GQA attention are still to port (ROADMAP Queue 1) and
+raise ``NotImplementedError``.
 
 The forward runs eagerly, layer by layer, on one device: attention, norms,
 projections and SSM blocks on the whole batch, the MoE layers on the mesh's
@@ -30,7 +33,7 @@ from .attention import (
     init_mla,
     mla_attention,
 )
-from .blocks import init_mlp, mlp
+from .blocks import dense_block, init_dense_block, init_mlp, mlp
 from .common import ArchConfig, Initializer, Mesh, rms_norm
 from .moe import MoEPlan, init_moe, make_moe_plan, moe_layer, moe_plan_for
 from .ssm import init_mamba, mamba_block
@@ -48,8 +51,8 @@ def shared_expert_params(moe_params: Dict) -> Dict:
 
 
 class Model:
-    """``repro``'s ``Model`` for the ``moe`` family with MLA and the ``ssm``
-    and ``hybrid`` families.
+    """``repro``'s ``Model`` for the ``dense``, ``vlm``, ``ssm`` and
+    ``hybrid`` families and the ``moe`` family with MLA.
 
     ``mesh`` (default: one lane) gives the MoE dispatch geometry; its
     devices are lanes stacked on ``device``.  ``machine_params`` is the
@@ -67,12 +70,19 @@ class Model:
         device=None,
     ):
         moe = cfg.family == "moe"
-        if not ((moe and cfg.mla) or cfg.family in ("ssm", "hybrid")):
+        if cfg.family == "audio":
             raise NotImplementedError(
-                f"{cfg.name}: family {cfg.family!r}"
-                f"{' without MLA' if moe else ''} is not ported yet; the "
-                "port runs the moe family with MLA attention, ssm and hybrid "
-                "(ROADMAP Queue 1 item 6)")
+                f"{cfg.name}: the audio family (encoder-decoder with "
+                "cross-attention) is not ported yet (ROADMAP Queue 1)")
+        if moe and not cfg.mla:
+            raise NotImplementedError(
+                f"{cfg.name}: the moe family without MLA (GQA with MoE, "
+                "mixtral) is not ported yet (ROADMAP Queue 1)")
+        if cfg.family in ("dense", "vlm") and cfg.mla:
+            raise NotImplementedError(
+                f"{cfg.name}: MLA outside the moe family is not ported")
+        if cfg.family not in ("dense", "vlm", "moe", "ssm", "hybrid"):
+            raise ValueError(cfg.family)
         if moe and moe_mode == "auto" and machine_params is None:
             raise ValueError("moe_mode='auto' needs machine_params")
         self.cfg = cfg
@@ -85,6 +95,11 @@ class Model:
         self.batch_axes = tuple(a for a in ("pod", "data")
                                 if a in self.mesh.axes)
         self.e_phys = self._probe_plan().e_phys if moe else 0
+        # per-layer window: with a local_global_period (gemma3) every
+        # period-th layer is global (0), the others at cfg.window
+        self.windows = [
+            0 if cfg.local_global_period and cfg.layer_is_global(i)
+            else cfg.window for i in range(cfg.n_layers)]
 
     def _probe_plan(self, tokens_per_lane: int = 8) -> MoEPlan:
         """Geometry-only plan (e_phys does not depend on the transport, so
@@ -108,6 +123,9 @@ class Model:
         if not cfg.tie_embeddings:
             p["lm_head"] = init.tensor((cfg.d_model, cfg.vocab),
                                        fan_in=cfg.d_model)
+        if cfg.family in ("dense", "vlm"):
+            p["blocks"] = init_dense_block(init, cfg, cfg.n_layers)
+            return p
         if cfg.family == "ssm":
             p["blocks"] = init_mamba(init, cfg, cfg.n_layers)
             return p
@@ -146,12 +164,20 @@ class Model:
     # -------------------------------------------------------------- forward
 
     def _positions(self, inputs: Dict, T: int, B: int) -> torch.Tensor:
+        """``inputs["positions"]``, else 0..T-1 for each row ([B, T]; under
+        M-RoPE the same in all three rows, [B, 3, T])."""
         if "positions" in inputs:
             return inputs["positions"]
-        return torch.arange(T, dtype=torch.int32,
-                            device=self.device).expand(B, T)
+        pos = torch.arange(T, dtype=torch.int32, device=self.device)
+        if self.cfg.mrope_sections is not None:
+            return pos.expand(B, 3, T)
+        return pos.expand(B, T)
 
     def _embed_in(self, params: Dict, inputs: Dict) -> torch.Tensor:
+        """Precomputed ``embeds`` (the vlm frontend stub) as they are, else
+        the token embeddings scaled by sqrt(d_model)."""
+        if "embeds" in inputs:
+            return inputs["embeds"].to(self.cfg.dtype)
         x = params["embed"][inputs["tokens"].long()]
         return x * torch.tensor(math.sqrt(self.cfg.d_model), dtype=x.dtype,
                                 device=x.device)
@@ -193,13 +219,17 @@ class Model:
 
     def forward(self, params: Dict,
                 inputs: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
-        """``inputs``: {"tokens": [B, S]} (and optionally "positions").
-        Returns (logits [B, S, V], aux loss)."""
-        B, T = inputs["tokens"].shape
+        """``inputs``: {"tokens": [B, S]} or {"embeds": [B, S, d]} (and
+        optionally "positions").  Returns (logits [B, S, V], aux loss)."""
         x = self._embed_in(params, inputs)
+        B, T = x.shape[:2]
         pos = self._positions(inputs, T, B)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        if self.cfg.family == "moe":
+        if self.cfg.family in ("dense", "vlm"):
+            for i, w in enumerate(self.windows):
+                x, _ = dense_block(_stack_slice(params["blocks"], i), x, pos,
+                                   self.cfg, window=w)
+        elif self.cfg.family == "moe":
             x, aux = self._forward_moe(params, x, pos)
         elif self.cfg.family == "ssm":
             for i in range(self.cfg.n_layers):

@@ -1,22 +1,25 @@
-"""Serving: prefill and single-token decode for the ``moe`` family with MLA
-and the ``ssm`` and ``hybrid`` families.
+"""Serving: prefill and single-token decode for the ``dense``, ``vlm``,
+``ssm`` and ``hybrid`` families and the ``moe`` family with MLA.
 
 Ported from ``repro.models.serving`` (``_prefill_attn``, ``_decode_attn``,
 ``moe_tokens_per_lane``, ``moe_plan_for_model``, ``moe_exchange_probe``,
 ``prefill``, ``decode_step`` with its pinned ``moe_plan`` and
 ``return_moe_stats``; ``_moe_ffn`` is
 :meth:`repro_torch.models.lm.Model.moe_block`, shared with the training
-forward); the other families are still to port (ROADMAP Queue 1).  The
-forward is a Python loop over layers; the MoE plan is looked up once per
-call, not once per layer.
+forward); the audio family is still to port (ROADMAP Queue 1).  The
+forward is a Python loop over layers, so per-layer caches may differ:
+gemma3's sliding-window layers hold ``window`` slots, its global layers
+``max_len``.  The MoE plan is looked up once per call, not once per layer.
+Prefill projects only the last position to logits.
 
 Cache invariants.  MLA: each layer keeps a compressed cache
 ``[B, max_len, kv_lora + rope]``; slots ``[0, cur_len)`` hold the tokens so
 far, K's rope part stored post-RoPE at its true position; attention masks
-with ``kv_len = cur_len + T`` and ``q_offset = cur_len``.  GQA (the hybrid's
-shared blocks): ``{"k", "v"}`` of ``[B, Hkv, Lc, dh]``, ``Lc`` the window or
-``max_len``; slots ``[0, filled)`` hold the most recent ``filled =
-min(cur_len, Lc)`` tokens in order, K post-RoPE at its true position;
+with ``kv_len = cur_len + T`` and ``q_offset = cur_len``.  GQA (dense and
+vlm layers, the hybrid's shared blocks): ``{"k", "v"}`` of
+``[B, Hkv, Lc, dh]``, ``Lc`` the window or ``max_len``; slots
+``[0, filled)`` hold the most recent ``filled = min(cur_len, Lc)`` tokens
+in order, K post-RoPE at its true position;
 attention masks with ``kv_len = filled`` and ``q_offset = filled - 1``.
 Mamba-2 layers keep ``{"conv", "ssm"}`` (:func:`~.ssm.init_mamba_state`).
 ``decode_step`` writes the new token's attention entries into the caches it
@@ -32,8 +35,8 @@ import torch
 
 from . import attention
 from .attention import gqa_project_out, gqa_project_qkv, write_cache
-from .blocks import mlp
-from .common import rms_norm
+from .blocks import dense_block, mlp
+from .common import ArchConfig, rms_norm
 from .lm import Model, _stack_slice
 from .moe import moe_plan_for
 from .ssm import mamba_block
@@ -123,14 +126,23 @@ def _prefill_attn(p_l: Dict, x: torch.Tensor, pos: torch.Tensor, cfg,
     return out, cache
 
 
+def _decode_positions(cfg: ArchConfig, B: int, cur: int,
+                      device) -> torch.Tensor:
+    """The new token's position ``cur``: [B, 1], or [B, 3, 1] under
+    M-RoPE (the same in all three rows)."""
+    pos = torch.full((B, 1), cur, dtype=torch.int32, device=device)
+    if cfg.mrope_sections is not None:
+        return pos[:, None, :].expand(B, 3, 1)
+    return pos
+
+
 def _decode_attn(p_l: Dict, x: torch.Tensor, cur: int, cfg, window: int,
                  cache: Dict):
     """One-token attention against a rolling cache: the new entry is
     appended at slot ``cur`` or, once the cache is full (``cur >= Lc``),
     the cache rolls one slot left and takes it in its last slot; both in
     place."""
-    B = x.shape[0]
-    pos = torch.full((B, 1), cur, dtype=torch.int32, device=x.device)
+    pos = _decode_positions(cfg, x.shape[0], cur, x.device)
     q, k, v = gqa_project_qkv(p_l, x, pos, cfg)   # k roped at its true pos
     ck, cv = cache["k"], cache["v"]
     Lc = ck.shape[2]
@@ -155,6 +167,16 @@ def _empty_mla_cache(model: Model, B: int, max_len: int) -> torch.Tensor:
     cfg = model.cfg
     return torch.zeros((B, max_len, cfg.kv_lora + cfg.qk_rope_dim),
                        dtype=cfg.dtype, device=model.device)
+
+
+def _prefill_dense(model: Model, params: Dict, x, pos,
+                   max_len: int) -> Tuple[torch.Tensor, List]:
+    caches = []
+    for i, w in enumerate(model.windows):
+        x, c = dense_block(_stack_slice(params["blocks"], i), x, pos,
+                           model.cfg, w, _prefill_attn, max_len=max_len)
+        caches.append(c)
+    return x, caches
 
 
 def _prefill_moe(model: Model, params: Dict, x, pos, max_len: int,
@@ -214,7 +236,9 @@ def prefill(model: Model, params: Dict, inputs: Dict, max_len: int,
     x = model._embed_in(params, inputs)
     B, T = x.shape[:2]
     pos = model._positions(inputs, T, B)
-    if cfg.family == "moe":
+    if cfg.family in ("dense", "vlm"):
+        x, caches = _prefill_dense(model, params, x, pos, max_len)
+    elif cfg.family == "moe":
         x, caches = _prefill_moe(model, params, x, pos, max_len, moe_plan)
     elif cfg.family == "ssm":
         caches = []
@@ -231,6 +255,16 @@ def prefill(model: Model, params: Dict, inputs: Dict, max_len: int,
 # ---------------------------------------------------------------------------
 # decode
 # ---------------------------------------------------------------------------
+
+
+def _decode_dense(model: Model, params: Dict, x, cur: int,
+                  caches: Tuple) -> Tuple[torch.Tensor, List]:
+    new_caches = []
+    for i, w in enumerate(model.windows):
+        x, c = dense_block(_stack_slice(params["blocks"], i), x, cur,
+                           model.cfg, w, _decode_attn, cache=caches[i])
+        new_caches.append(c)
+    return x, new_caches
 
 
 def _decode_moe(model: Model, params: Dict, x, cur: int, caches: Tuple,
@@ -292,7 +326,8 @@ def _decode_hybrid(model: Model, params: Dict, x, cur: int,
 def decode_step(model: Model, params: Dict, inputs: Dict,
                 caches: Tuple, cur_len: int, moe_plan=None,
                 return_moe_stats: bool = False):
-    """One-token step.  ``inputs``: {"tokens": [B, 1]}; ``cur_len``: tokens
+    """One-token step.  ``inputs``: {"tokens": [B, 1]} or {"embeds":
+    [B, 1, d]}; ``cur_len``: tokens
     already in the caches.  Returns (logits [B, V], caches); with
     ``return_moe_stats=True`` also a stats dict: ``expert_counts``, the
     step's routing histogram summed over the MoE layers ([e_log] f32, the
@@ -304,7 +339,9 @@ def decode_step(model: Model, params: Dict, inputs: Dict,
     cur = int(cur_len)
     x = model._embed_in(params, inputs)
     layer_stats: Optional[List] = [] if return_moe_stats else None
-    if cfg.family == "moe":
+    if cfg.family in ("dense", "vlm"):
+        x, new_caches = _decode_dense(model, params, x, cur, caches)
+    elif cfg.family == "moe":
         x, new_caches = _decode_moe(model, params, x, cur, caches,
                                     moe_plan=moe_plan, stats=layer_stats)
     elif cfg.family == "ssm":

@@ -84,6 +84,14 @@ def _flatten(tree: Any) -> Tuple[List[Any], str]:
     return leaves, walk(tree)
 
 
+def _rebuild(seq, items: List[Any]):
+    """A list or tuple of ``seq``'s type holding ``items``; a NamedTuple
+    takes them as its fields."""
+    if hasattr(seq, "_fields"):
+        return type(seq)(*items)
+    return type(seq)(items)
+
+
 def _unflatten(template: Any, leaves: List[Any]) -> Any:
     """``template``'s structure with its leaves replaced, in
     :func:`_flatten`'s order."""
@@ -96,7 +104,7 @@ def _unflatten(template: Any, leaves: List[Any]) -> Any:
             out = {k: build(x[k]) for k in sorted(x)}
             return {k: out[k] for k in x}
         if isinstance(x, (list, tuple)):
-            return type(x)(build(v) for v in x)
+            return _rebuild(x, [build(v) for v in x])
         return next(it)
 
     return build(template)

@@ -55,6 +55,7 @@ import torch
 
 from .. import resolve_device
 from ..models.common import Mesh
+from .checkpoint import _rebuild
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,7 +103,7 @@ def reshard_state(state, device=None):
         if isinstance(x, dict):
             return {k: put(v) for k, v in x.items()}
         if isinstance(x, (list, tuple)):
-            return type(x)(put(v) for v in x)
+            return _rebuild(x, [put(v) for v in x])
         if isinstance(x, np.ndarray):
             return torch.from_numpy(np.ascontiguousarray(x)).to(device)
         if isinstance(x, torch.Tensor):

@@ -5,10 +5,13 @@
 async save, bf16 leaves included), and the on-disk format shared with
 ``repro``: a checkpoint written by either package restores in the other
 bit for bit, and the manifests carry the same leaves (files, dtypes,
-shapes, sha256, bytes) in the same order.
+shapes, sha256, bytes) in the same order.  NamedTuple trees shaped as
+``repro``'s ``TrainState`` (which holds the NamedTuple ``OptState``)
+round-trip with their types kept and restore from ``repro``'s checkpoints.
 """
 import json
 import os
+from typing import Any, NamedTuple, Optional
 
 import numpy as np
 import pytest
@@ -201,3 +204,72 @@ def test_reference_checkpoint_restores_in_port(tmp_path):
     step, got = ref_ckpt.CheckpointManager(
         str(tmp_path / "m")).restore_latest(ref_tree())
     assert step == 11 and flat(got) == flat(ref_tree())
+
+
+class OptState(NamedTuple):
+    """``repro.train.optimizer.OptState``'s fields."""
+    step: Any
+    mu: Any
+    nu: Any
+
+
+class TrainState(NamedTuple):
+    """``repro.train.trainer.TrainState``'s fields: a NamedTuple holding a
+    NamedTuple."""
+    params: Any
+    opt: OptState
+    residual: Optional[Any]
+
+
+def train_state(arr, cls=TrainState, opt_cls=OptState):
+    """A two-level NamedTuple tree of ``arr`` (torch.as_tensor or
+    jnp.asarray) leaves, a bf16 one included."""
+    h = host_arrays()
+    params = {"w": arr(h["a"]), "b": arr(h["d"])}
+    return cls(params=params,
+               opt=opt_cls(step=arr(h["c"]),
+                           mu={"w": arr(h["a"] * 0.5), "b": arr(h["d"])},
+                           nu={"w": arr(h["a"] ** 2), "b": arr(h["d"])}),
+               residual=None)
+
+
+def assert_train_state(got, want):
+    assert type(got) is TrainState and type(got.opt) is OptState
+    assert got.residual is None
+    assert flat(got) == flat(want)
+
+
+def test_namedtuple_tree_round_trips(tmp_path):
+    """save / restore and the synchronous manager keep both NamedTuple
+    types (a NamedTuple takes its fields as arguments, not one iterable)."""
+    tree = train_state(torch.as_tensor)
+    tree = tree._replace(params=dict(
+        tree.params, b=tree.params["b"].to(torch.bfloat16)))
+    save_checkpoint(str(tmp_path / "a"), 3, tree)
+    step, got = restore_checkpoint(str(tmp_path / "a"), tree)
+    assert step == 3
+    assert_train_state(got, tree)
+    assert got.params["b"].dtype == torch.bfloat16
+    mgr = CheckpointManager(str(tmp_path / "m"), keep=2, async_save=False)
+    mgr.save(4, tree)
+    tree.params["w"].add_(1.0)      # the manager saved a snapshot
+    step, got = mgr.restore_latest(tree)
+    assert step == 4
+    assert torch.equal(got.params["w"] + 1.0, tree.params["w"])
+    assert_train_state(got._replace(params=tree.params), tree)
+
+
+def test_reference_namedtuple_checkpoint_restores_in_port(tmp_path):
+    """A ``repro.train`` ``TrainState`` checkpoint (``repro``'s own
+    NamedTuples, written by ``repro``'s ``save_checkpoint``) restores into
+    the port's template of the same fields."""
+    from repro.train.optimizer import OptState as RefOptState
+    from repro.train.trainer import TrainState as RefTrainState
+
+    ref = train_state(jnp.asarray, RefTrainState, RefOptState)
+    ref_ckpt.save_checkpoint(str(tmp_path), 12, ref)
+    template = train_state(torch.as_tensor)
+    step, got = restore_checkpoint(str(tmp_path), template)
+    assert step == 12
+    assert_train_state(got, template)
+    assert flat(got) == flat(ref)

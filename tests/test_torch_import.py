@@ -55,6 +55,11 @@ def test_port_imports_no_jax_and_no_reference_package():
                 "repro_torch.models.serving", "repro_torch.serve.engine",
                 "repro_torch.configs.zamba2_7b",
                 "repro_torch.configs.mamba2_780m", "repro_torch.models.ssm",
+                "repro_torch.configs.qwen2_0_5b",
+                "repro_torch.configs.qwen1_5_0_5b",
+                "repro_torch.configs.gemma3_1b",
+                "repro_torch.configs.nemotron_4_15b",
+                "repro_torch.configs.qwen2_vl_2b",
                 "repro_torch.kernels.ssd_scan.cuda",
                 "repro_torch.obs.metrics", "repro_torch.obs.export",
                 "repro_torch.profile.trace",

@@ -156,6 +156,32 @@ def test_reshard_state_places_without_cast_or_copy():
     assert torch.equal(got["l"][0], state["l"][0])
 
 
+def test_reshard_state_keeps_namedtuple_types():
+    """A NamedTuple holding a NamedTuple (``repro``'s ``TrainState`` holds
+    ``OptState``) comes back as the same types, its leaves placed."""
+    from typing import Any, NamedTuple
+
+    class Opt(NamedTuple):
+        step: Any
+        mu: Any
+
+    class State(NamedTuple):
+        params: Any
+        opt: Opt
+        residual: Any
+
+    state = State(params={"w": torch.ones(2, 3)},
+                  opt=Opt(step=np.arange(4, dtype=np.int32),
+                          mu=[torch.zeros(3)]),
+                  residual=None)
+    got = rt.reshard_state(state, "cpu")
+    assert type(got) is State and type(got.opt) is Opt
+    assert got.residual is None and got.params["w"] is state.params["w"]
+    assert got.opt.step.dtype == torch.int32
+    np.testing.assert_array_equal(got.opt.step.numpy(), state.opt.step)
+    assert isinstance(got.opt.mu, list) and got.opt.mu[0] is state.opt.mu[0]
+
+
 @pytest.mark.parametrize("seed", range(6))
 def test_heartbeat_death_lists_equal(seed):
     rng = np.random.default_rng(seed)

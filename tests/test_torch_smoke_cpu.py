@@ -343,6 +343,45 @@ def test_chip_smoke_hybrid_phase_runs_on_cpu():
     assert all(n == 0 for n in res["launches"].values())   # no card
 
 
+def test_chip_smoke_dense_phase_runs_on_cpu():
+    """The dense phase at the reduced configs: gemma3-1b (prompts longer
+    than its window of 16, so every decode step rolls the local caches) and
+    qwen2-0.5b serve all requests through the engine, their replay through
+    the plain K7 agrees and refuses each model's planted fault (gemma3's
+    local layers at window 0; qwen2's decode reading the unfilled cache
+    slots); nemotron-4-15b and qwen2-vl-2b (M-RoPE rows differing) run a
+    prefill and 4 decode steps held to the plain K7; every K7 call is
+    checked, gemma3's largest windowed prefill call timed."""
+    chip_smoke = _chip_smoke()
+    res = chip_smoke.dense_run("cpu", reduced_config=True)
+    sizes = chip_smoke.dense_sizes(False)
+    assert set(res["served"]) == set(chip_smoke.DENSE_ARCHS)
+    assert set(res["cut"]) == set(chip_smoke.DENSE_CUT_ARCHS)
+    for arch, run in res["served"].items():
+        summ = run["summary"]
+        assert sorted(len(t) for t in summ["tokens"].values()) == \
+            sorted(sizes["new"])
+        assert summ["prefills"] >= 2 and summ["decode_steps"] > 0
+        assert summ["oracle_rel_err"] == 0.0     # the plain version itself
+        assert len(summ["planted"]) == 1
+        for got in summ["planted"].values():
+            assert got["rel_err"] > chip_smoke.LOGIT_TOL or got["differ"] > 0
+        assert run["kernel"]["checked"] > 0 and "decode" in run["kernel"]
+    assert "K7 at window 0 on the local layers" in \
+        res["served"]["gemma3-1b"]["summary"]["planted"]
+    from repro_torch import configs
+    assert min(sizes["prompts"]) > configs.reduced("gemma3-1b").window
+    for run in res["cut"].values():
+        assert run["oracle_rel_err"] == 0.0 and run["kernel"]["checked"] > 0
+        assert run["kernel"]["bound_ms"] > 0.0 and "decode" in run["kernel"]
+    rec = res["kernels"]["flash_attention_bh"]
+    assert rec["max_abs_err"] == 0.0 and rec["bound_ms"] > 0.0
+    assert rec["window_prefill"]["bound_ms"] > 0.0
+    assert set(rec["by_arch"]) == {*chip_smoke.DENSE_ARCHS,
+                                   *chip_smoke.DENSE_CUT_ARCHS}
+    assert res["launches"] == {"flash_attention_bh": 0}      # no card
+
+
 @pytest.mark.skipif(torch.cuda.is_available(),
                     reason="with a card the script runs the A/B itself")
 def test_decode_ab_refuses_to_run_without_a_card():
