@@ -8,8 +8,8 @@ Run from the repository root with no arguments::
 It drives the port's paths on the card and fails (non-zero exit) if
 any phase fails:
 
-1. builds the CUDA kernels K1-K8 from ``src/repro_torch/csrc``, one
-   ``nvcc`` per source, in parallel;
+1. builds the CUDA kernels K1-K8 and K7's backward from
+   ``src/repro_torch/csrc``, one ``nvcc`` per source, in parallel;
 2. AMG: checks that the exchange executor delivers ghosts bitwise equal to
    the host oracle ``CommPlan.execute_numpy`` for the three strategies;
 3. solves the paper problem (524,288 rows, 8 ranks, ``procs_per_region=4``,
@@ -91,7 +91,22 @@ any phase fails:
    differ): a prefill and 4 decode steps held to the plain K7; last K7's
    causal prefill at d 64, 128, 192 and 256 on one grid (BH 16 and 7, T
    1,100), each held to the plain K7 and timed per FLOP;
-8. partitioned, last: builds the hierarchy of the AMG phases' matrix by the
+8. train (:func:`train_run`): qwen2-0.5b at full width and depth in
+   float32 with remat, through ``repro_torch.launch.train``'s main path
+   (6 steps of 8 x 1,024 tokens, a checkpoint every 3; the loss must fall;
+   a run resumed from the first checkpoint must end bitwise on the
+   uninterrupted one; K7's forward 48 and its backward 24 calls a step);
+   one lane-step through the kernels against K7's forward and backward
+   bound to their plain versions, and with a backward fault planted (dK
+   of the last key tile at zero, refused); every distinct K7 forward and
+   backward call of it held to the plain versions in bf16 and float32 and
+   timed from a cold L2 beside ``sdpa``'s; ``make_dp_train_step`` on 8
+   data-parallel lanes stacked on the card under ``jit``, ``ring``,
+   ``hier`` and ``auto`` (``LASSEN``), each explicit variant's synced
+   gradient within 8 2^-24 mean_p |g_p| of the lanes' float64 mean and a
+   planted fault (the plan's first round dropped) refused; ``repro``'s
+   ``check_grad_sync`` problem, every variant within 1e-12 of ``jit``;
+9. partitioned, last: builds the hierarchy of the AMG phases' matrix by the
    distributed setup (``DistributedHierarchy.setup_partitioned``: PMIS,
    interpolation and the Galerkin SpGEMM over discovered exchanges), holds
    it level by level to the host hierarchy (identical splittings, A / P / R
@@ -103,7 +118,7 @@ any phase fails:
    within 1e-8) and resumes a solve from its third iterate (``x0``);
    then runs the dense executor (``bind_dense``) for every collective x
    variant on three count sets, bitwise equal to ``execute_numpy``, timed;
-9. verify: ``verify_hierarchy`` over the paper hierarchy in the flat and
+10. verify: ``verify_hierarchy`` over the paper hierarchy in the flat and
    blocked layouts (the flat one set up with ``REPRO_VERIFY=1``, so every
    plan, executor and dense executor is checked on insertion; the seconds
    by namespace printed) and over the partitioned hierarchy, the blocked
@@ -114,7 +129,7 @@ any phase fails:
    nonzero, a bucket dropped from K4's map, a swapped scatter index, an
    executor audited against a foreign plan, K7 over the shared-memory
    limit);
-10. elastic (:func:`elastic_phase`): the paper problem flat/off and
+11. elastic (:func:`elastic_phase`): the paper problem flat/off and
    blocked/off, each in a fresh ``PlanCache``: 3 V-cycles on 8 ranks, a
    heartbeat ``repartition`` to 4 (cold), 3 more from the 8-rank iterate
    (within 1e-12 of a cold 4-rank solve of 6), a grow-back to 8 that must
@@ -127,7 +142,7 @@ any phase fails:
    rebalance of host 2 with a ``straggler-refit``, the rebalanced solve
    below 1e-8) and two planted faults (a grow-back through a fresh cache
    reads cold; a resume from the 8-rank layout misses 1e-12);
-11. calibrate, last (no profiler): times the rate probes
+12. calibrate, last (no profiler): times the rate probes
    (``profile.probe_plans`` on ``Topology(8, 4)``, 16,384 values a
    message, every strategy), the paper problem's exchanges
    (``measure_exchange_seconds``), its SpMVs flat/off and blocked/off
@@ -148,7 +163,7 @@ any phase fails:
    fit and the card's own figures (:func:`card_figures`) against the host
    history, each level's choices beside ``LASSEN``'s and beside the faster
    measured SpMV;
-12. checks that each path launched each of its kernels (the AMG solves
+13. checks that each path launched each of its kernels (the AMG solves
    the launches per V-cycle of ``VCYCLE_LAUNCHES``, the partitioned solve
    K2 and K4, the calibrate phase K1, K2 and K4), and prints one JSON
    line with every kernel's record: calls (``launches``) and
@@ -156,7 +171,8 @@ any phase fails:
    ``partitioned_launches`` and ``calibrate_launches``; every kernel its
    ``elastic_launches``, K1, K2, K4 and K5-K7 above 0; K7 its
    ``dense_launches`` and, under ``dense``, the dense models' timed
-   calls), ``ms`` by CUDA events, ``device_ms`` and ``host_us``
+   calls, ``train_launches`` and its train calls' times; K7's backward
+   ``flash_attention_bh_bwd``), ``ms`` by CUDA events, ``device_ms`` and ``host_us``
    (:func:`device_times`), bound, plain and library times.
 
 Its last line is ``{"ok": true, "device": {...}}``.  It uses no JAX.
@@ -169,10 +185,12 @@ import gc
 import inspect
 import itertools
 import json
+import math
 import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Optional
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
@@ -1385,7 +1403,8 @@ def verify_phase(amg: dict, part_res: dict, on_card: bool) -> dict:
     logged = ({lib.source.name: check_build_log_registers(
         attrs, lib.source.name, lib.build_log)
         for lib in (sp_cuda.LIBRARY, mp_cuda.LIBRARY, fa_cuda.LIBRARY,
-                    ssd_cuda.LIBRARY)} if on_card else "not built here")
+                    fa_cuda.BWD_LIBRARY, ssd_cuda.LIBRARY)}
+        if on_card else "not built here")
     worst = max(attrs, key=lambda a: a["num_regs"] * a["threads"])
     log(f"verify: {got['kernels']} CUDA kernels within the card's limits "
         f"({got['k7_head_dims']} K7 prefill head dims at their tiles' "
@@ -2742,6 +2761,10 @@ def serve_work(name: str, a: dict):
     keys = min(a["kv_len"], k.shape[1])
     pairs = int(attention_mask(Tq, k.shape[1], a["causal"], a["window"],
                                a["kv_len"], a["q_offset"], q.device).sum())
+    if name == BWD:
+        # q, o, dO and lse in, dq out; k, v in, dk, dv out; five products
+        return (4 * BH * Tq * d * es + 4 * BH * Tq + 4 * BH * keys * d * es,
+                10 * BH * pairs * d)
     return (2 * BH * Tq * d * es + 2 * BH * keys * d * es,
             4 * BH * pairs * d)
 
@@ -2757,6 +2780,10 @@ def serve_kernel_call(name: str, a: dict):
         return mp_ops.pack(a["x"], a["idx"])
     if name == "combine_rows":
         return mp_ops.combine_lanes(a["buf"], a["idx"], a["w"])
+    if name == BWD:
+        return fa_ops.flash_attention_bh_bwd(
+            a["q"], a["k"], a["v"], a["o"], a["lse"], a["do"],
+            scale=a["scale"], causal=a["causal"], window=a["window"])
     return fa_ops.flash_attention_bh(
         a["q"], a["k"], a["v"], scale=a["scale"], causal=a["causal"],
         window=a["window"], kv_len=a["kv_len"], q_offset=a["q_offset"])
@@ -2765,7 +2792,10 @@ def serve_kernel_call(name: str, a: dict):
 def serve_plain_call(name: str, a: dict, operand=None):
     """The plain version of the call; ``operand`` as K7's and K8's plain
     versions take it (applied to their fp32 product operands)."""
-    from repro_torch.kernels.flash_attention.ref import flash_attention_bh_ref
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bh_bwd_ref,
+        flash_attention_bh_ref,
+    )
     from repro_torch.kernels.moe_pack.ref import (
         combine_lanes_ref,
         gather_rows_ref,
@@ -2779,6 +2809,10 @@ def serve_plain_call(name: str, a: dict, operand=None):
         return gather_rows_ref(a["x"], a["idx"])
     if name == "combine_rows":
         return combine_lanes_ref(a["buf"], a["idx"], a["w"])
+    if name == BWD:
+        return flash_attention_bh_bwd_ref(
+            a["q"], a["k"], a["v"], a["o"], a["lse"], a["do"],
+            scale=a["scale"], causal=a["causal"], window=a["window"])
     return flash_attention_bh_ref(
         a["q"], a["k"], a["v"], scale=a["scale"], causal=a["causal"],
         window=a["window"], kv_len=a["kv_len"], q_offset=a["q_offset"],
@@ -2826,6 +2860,18 @@ def serve_library_call(name: str, a: dict):
     q, k, v = a["q"], a["k"], a["v"]
     mask = attention_mask(q.shape[1], k.shape[1], a["causal"], a["window"],
                           a["kv_len"], a["q_offset"], q.device)
+    if name == BWD:
+        # sdpa's backward alone: its forward's graph built here, the
+        # gradient taken in the call (the causal mask as is_causal, so
+        # that sdpa may take its fused kernels)
+        qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+        plain_causal = a["causal"] and not a["window"] \
+            and q.shape[1] == k.shape[1]
+        out = tf.scaled_dot_product_attention(
+            qg, kg, vg, attn_mask=None if plain_causal else mask,
+            is_causal=plain_causal, scale=a["scale"])
+        return lambda: torch.autograd.grad(out, (qg, kg, vg), a["do"],
+                                           retain_graph=True)
     return lambda: tf.scaled_dot_product_attention(q, k, v, attn_mask=mask,
                                                    scale=a["scale"])
 
@@ -2917,7 +2963,7 @@ def time_serve_call(name: str, a: dict, on_card: bool) -> dict:
 
     nbytes, flops = serve_work(name, a)
     dname = str(a["buf" if name == "combine_rows" else "q"
-                  if name == "flash_attention_bh" else "x"].dtype).split(".")[1]
+                  if name.startswith("flash") else "x"].dtype).split(".")[1]
     t_bytes = nbytes / PEAK_BYTES_PER_S
     t_ops = flops / PEAK_FLOPS[dname]
     library = serve_library_call(name, a)
@@ -3818,6 +3864,716 @@ def dense_run(device: str = "cuda", reduced_config: bool = False) -> dict:
                 seconds=time.perf_counter() - t0)
 
 
+# --------------------------------------------------------------- train phase
+TRAIN_ARCH = "qwen2-0.5b"
+BWD = "flash_attention_bh_bwd"
+# K7's forward log-sum-exp against the plain version's, normwise over the
+# rows that see a key (fp32 in both, from the same inputs)
+LSE_TOL = 1e-5
+# K7's backward at calls the training path does not make: d 128, a
+# window, non-causal, a ragged T, rows that see no key; (BH, Tq, Tk, d,
+# causal, window)
+BWD_EDGE_CALLS = (
+    (3, 100, 100, 64, True, 0),
+    (2, 257, 257, 128, True, 0),
+    (2, 130, 130, 64, True, 40),
+    (2, 70, 45, 64, False, 0),
+    (2, 90, 33, 128, False, 16),     # rows 48 on see no key
+)
+
+
+def forward_lse(a: dict):
+    """(out, lse) of the K7 forward call ``a``: the kernel on the card, the
+    plain version off it."""
+    from repro_torch.kernels import use_kernel
+    from repro_torch.kernels.flash_attention import cuda as fa_cuda
+    from repro_torch.kernels.flash_attention.ref import flash_attention_bh_ref
+
+    q, k, v = (a[n].detach().contiguous() for n in ("q", "k", "v"))
+    if use_kernel(q, k, v):
+        return fa_cuda.flash_attention_bh(q, k, v, a["scale"], a["causal"],
+                                          a["window"], k.shape[1], 0,
+                                          lse=True)
+    return flash_attention_bh_ref(q, k, v, scale=a["scale"],
+                                  causal=a["causal"], window=a["window"],
+                                  return_lse=True)
+
+
+def bwd_call(a: dict, do) -> dict:
+    """The backward call of the forward call ``a`` (a prefill over all its
+    keys from position 0) for the output's gradient ``do``: o and lse by
+    :func:`forward_lse`."""
+    o, lse = forward_lse(a)
+    return dict(q=a["q"].detach(), k=a["k"].detach(), v=a["v"].detach(),
+                o=o, lse=lse, do=do.detach(), scale=a["scale"],
+                causal=a["causal"], window=a["window"],
+                kv_len=a["k"].shape[1], q_offset=0)
+
+
+def check_bwd_call(a: dict, label: str) -> float:
+    """K7's forward lse (``LSE_TOL``) and backward (each of dq, dk, dv
+    normwise within ``SERVE_TOL``) against their plain versions, in bf16
+    and float32, on the call's q, k, v and do cast to each, o and lse
+    from the kernel's forward in that dtype; returns the bf16 max
+    |difference| of dq, dk, dv."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.ref import flash_attention_bh_ref
+
+    abs_err = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[1]
+        ad = dict(a, **{n: a[n].detach().to(dtype)
+                        for n in ("q", "k", "v", "do")})
+        b = bwd_call(ad, ad["do"])
+        _, lse_ref = flash_attention_bh_ref(
+            ad["q"], ad["k"], ad["v"], scale=a["scale"], causal=a["causal"],
+            window=a["window"], return_lse=True)
+        seen = torch.isfinite(lse_ref)
+        if not torch.equal(seen, torch.isfinite(b["lse"])):
+            fail(f"{BWD} {label} {dname}: the forward's lse is infinite on "
+                 "other rows than the plain version's")
+        err = rel_err(b["lse"][seen], lse_ref[seen])
+        if not err <= LSE_TOL:
+            fail(f"{BWD} {label} {dname}: forward lse {err} off the plain "
+                 f"version's (tolerance {LSE_TOL})")
+        got, want = serve_kernel_call(BWD, b), serve_plain_call(BWD, b)
+        for n, g, w in zip(("dq", "dk", "dv"), got, want):
+            if g.shape != w.shape or g.dtype != w.dtype:
+                fail(f"{BWD} {label} {dname} {n}: {tuple(g.shape)} {g.dtype}"
+                     f" vs {tuple(w.shape)} {w.dtype}")
+            if not bool(torch.isfinite(g).all()):
+                fail(f"{BWD} {label} {dname} {n}: non-finite output")
+            err = rel_err(g.float(), w.float())
+            if not err <= SERVE_TOL[dname]:
+                fail(f"{BWD} {label} {dname} {n}: max rel error {err} > "
+                     f"{SERVE_TOL[dname]}")
+            if dtype == torch.bfloat16 and g.numel():
+                abs_err = max(abs_err, float(torch.max(torch.abs(
+                    g.float() - w.float()))))
+        if not bool((got[0][~seen] == 0).all()):
+            fail(f"{BWD} {label} {dname}: a row that sees no key has a "
+                 "nonzero dq")
+    return abs_err
+
+
+def bwd_edge_checks(device, gen) -> float:
+    """``BWD_EDGE_CALLS`` against the plain versions (:func:`check_bwd_call`),
+    a rerun of each bitwise equal to the first (the backward has no
+    atomics), and the calls the backward does not take refused (a
+    q_offset; kv_len < Tk; one query row); returns the bf16 max
+    |difference|."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import flash_attention_bh
+
+    err = 0.0
+    for BH, Tq, Tk, d, causal, window in BWD_EDGE_CALLS:
+        q, do = (torch.randn(BH, Tq, d, generator=gen).to(device)
+                 for _ in range(2))
+        k, v = (torch.randn(BH, Tk, d, generator=gen).to(device)
+                for _ in range(2))
+        a = dict(q=q, k=k, v=v, do=do, scale=d ** -0.5, causal=causal,
+                 window=window, kv_len=Tk, q_offset=0)
+        label = (f"edge [{BH}, {Tq}, {Tk}, {d}] "
+                 + ("causal" if causal else "non-causal")
+                 + (f" window {window}" if window else ""))
+        err = max(err, check_bwd_call(a, label))
+        b = bwd_call(a, do)
+        first, again = serve_kernel_call(BWD, b), serve_kernel_call(BWD, b)
+        if not all(torch.equal(x, y) for x, y in zip(first, again)):
+            fail(f"{BWD} {label}: a rerun differs from the first run")
+        log(f"kernel {BWD} {label}: within tolerance of its plain version "
+            "in bf16 and float32, lse too; a rerun bitwise equal")
+    for kw, Tq, Tk in ((dict(q_offset=3), 8, 11), (dict(kv_len=6), 8, 8),
+                       (dict(), 1, 8)):
+        q = torch.randn(2, Tq, 64, device=device, requires_grad=True)
+        k = torch.randn(2, Tk, 64, device=device, requires_grad=True)
+        what = f"Tq {Tq}, Tk {Tk}, {kw}"
+        try:
+            flash_attention_bh(q, k, k, scale=0.125, causal=True, **kw)
+        except ValueError as e:
+            log(f"kernel {BWD} edge    refuses a call it does not take "
+                f"({what}): {e}")
+            continue
+        fail(f"{BWD}: a call ({what}) that wants a gradient was not "
+             "refused")
+    return err
+
+
+def time_bwd_call(a: dict, on_card: bool) -> dict:
+    """The backward call ``a`` timed as :func:`time_serve_call` times a
+    serve call (kernel, plain, ``sdpa``'s backward, bound; device ms from
+    a cold L2), with its forward beside it (kernel, plain, ``sdpa``)."""
+    fwd = dict(q=a["q"], k=a["k"], v=a["v"], scale=a["scale"],
+               causal=a["causal"], window=a["window"], kv_len=a["kv_len"],
+               q_offset=0)
+    out = time_serve_call(BWD, a, on_card)
+    out["forward"] = time_serve_call("flash_attention_bh", fwd, on_card)
+    return out
+
+
+def log_timed(name: str, label: str, a: dict, t: dict) -> None:
+    lib = "none" if t["library_ms"] is None else f"{t['library_ms']:.4f} ms"
+    log(f"  {name} {label} ({serve_call_shape(name, a)} "
+        f"{str(a['q'].dtype).split('.')[1]}, {t['mbytes']:.2f} MB, "
+        f"{t['gflop']:.3f} GFLOP): kernel {t['ms']:.4f} ms, plain "
+        f"{t['plain_ms']:.4f} ms, library {lib}, bound {t['bound_ms']:.4f} ms"
+        f" ({t['bound_by']}); device ms from a cold L2 "
+        f"({t['cold_copies']} copies) {fmt_ms(t['device_ms'])} (library "
+        f"{fmt_ms(t['library_device_ms'])}; CUDA events behind a device "
+        f"sleep {fmt_ms(t['slept_ms'])}), host us per call "
+        f"{fmt_ms(t['host_us'])}")
+
+
+TRAIN_SEED = 0
+TRAIN_BWD_SOURCE = "src/repro_torch/csrc/flash_attention_bwd.cu"
+# repro has no Pallas backward: its gradient through attention is jax's
+# VJP of the chunked attention_ref
+TRAIN_BWD_REPLACES = ("src/repro/kernels/flash_attention/ref.py:69 "
+                      "attention_ref, by jax.vjp (no Pallas backward)")
+# the launcher's loss must fall by this much (nats) over its steps
+TRAIN_LOSS_DROP = 0.1
+DP_METHODS = ("jit", "ring", "hier", "auto")
+DP_LANES = 8
+# a lane-step's loss and gradient through the kernels against the plain
+# K7 (forward and backward bound to their plain versions): the loss
+# relative, the gradient by its relative norm; float32 sums in other
+# orders through 24 layers (7.6e-7 seen on the H100, and the planted
+# backward fault 5.8e-4)
+ORACLE_LOSS_TOL = 1e-5
+ORACLE_GRAD_TOL = 1e-5
+
+
+def train_sizes(on_card: bool) -> dict:
+    """The launcher's run (batch x seq, steps, checkpoint every) and the
+    DP step (lanes of one sequence each); off the card, the CPU
+    rehearsal's sizes at the reduced config and vocab 128."""
+    if on_card:
+        return dict(batch=8, seq=1024, steps=6, ckpt_every=3,
+                    lane_seq=1024, vocab=None)
+    return dict(batch=4, seq=32, steps=6, ckpt_every=3, lane_seq=32,
+                vocab=128)
+
+
+def train_config(reduced_config: bool, sizes: dict):
+    import torch
+
+    from repro_torch import configs
+
+    cfg = (configs.reduced if reduced_config else configs.get)(TRAIN_ARCH)
+    if sizes["vocab"]:
+        cfg = dataclasses.replace(cfg, vocab=sizes["vocab"])
+    return dataclasses.replace(cfg, dtype=torch.float32)
+
+
+def k7_counts() -> dict:
+    from repro_torch.kernels import CUDA_LAUNCHES, LAUNCHES
+
+    return {k: (LAUNCHES[k], CUDA_LAUNCHES[k])
+            for k in ("flash_attention_bh", BWD)}
+
+
+def k7_since(before: dict, per: int = 1) -> dict:
+    """K7's forward and backward calls and CUDA launches since ``before``
+    (:func:`k7_counts`), divided by ``per``."""
+    now = k7_counts()
+    return {k: ((now[k][0] - before[k][0]) / per,
+                (now[k][1] - before[k][1]) / per) for k in now}
+
+
+def check_k7_per_step(got: dict, n_layers: int, label: str,
+                      on_card: bool) -> None:
+    """With remat, K7's forward twice a layer (the forward and its
+    recompute) and its backward once, a call one CUDA launch forward and
+    three backward."""
+    want = {"flash_attention_bh": (2 * n_layers, 2 * n_layers),
+            BWD: (n_layers, 3 * n_layers)}
+    if on_card and got != want:
+        fail(f"train {label}: K7 (calls, CUDA launches) per step {got}, "
+             f"expected {want}")
+
+
+def launcher_part(cfg, device: str, on_card: bool, sizes: dict,
+                  out_dir: Path, reduced_config: bool) -> dict:
+    """``repro_torch.launch.train``'s main path: ``steps`` steps of
+    batch x seq in float32 with remat, a checkpoint every ``ckpt_every``
+    steps; then a run that died after the first checkpoint (a directory
+    holding only it) resumes and must end bitwise on the uninterrupted
+    run's parameters and optimizer state.  The loss must be finite and
+    fall by ``TRAIN_LOSS_DROP``; K7 per step as :func:`check_k7_per_step`."""
+    import shutil
+
+    import torch
+
+    from repro_torch.launch import train as launch
+    from repro_torch.train.tree import tree_leaves
+
+    B, S, N, every = (sizes[k] for k in ("batch", "seq", "steps",
+                                         "ckpt_every"))
+    args = ["--arch", TRAIN_ARCH, "--steps", str(N), "--batch", str(B),
+            "--seq", str(S), "--ckpt-every", str(every), "--log-every", "1",
+            "--device", device]
+    if reduced_config:
+        args += ["--reduced"]
+    if sizes["vocab"]:
+        args += ["--vocab", str(sizes["vocab"])]
+    full_dir, died_dir = out_dir / "full", out_dir / "died"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    start = before = k7_counts()
+    t0 = time.perf_counter()
+    full = launch.main(args + ["--ckpt", str(full_dir)])
+    wall = time.perf_counter() - t0
+    per_step = k7_since(before, N)
+    check_k7_per_step(per_step, cfg.n_layers, "launcher", on_card)
+    peak = torch.cuda.max_memory_allocated() / 1e9 if on_card else None
+    hist = full["history"]
+    losses = [h["loss"] for h in hist]
+    if not all(map(math.isfinite, losses)):
+        fail(f"train launcher: non-finite loss {losses}")
+    if not losses[-1] < losses[0] - TRAIN_LOSS_DROP:
+        fail(f"train launcher: the loss went {losses[0]:.4f} -> "
+             f"{losses[-1]:.4f}, not down by {TRAIN_LOSS_DROP}")
+    steady = sorted(h["seconds"] for h in hist[1:])
+    step_s = steady[len(steady) // 2]
+    tok_s = B * S / step_s
+    first = f"step_{every:09d}"
+    died_dir.mkdir(parents=True)
+    shutil.copytree(full_dir / first, died_dir / first)
+    (died_dir / "LATEST").write_text(first)
+    before = k7_counts()
+    t1 = time.perf_counter()
+    resumed = launch.main(args + ["--ckpt", str(died_dir)])
+    resume_wall = time.perf_counter() - t1
+    check_k7_per_step(k7_since(before, N - every), cfg.n_layers,
+                      "launcher resumed", on_card)
+    k7 = k7_since(start)
+    a, b = tree_leaves(full["state"]), tree_leaves(resumed["state"])
+    same = len(a) == len(b) and all(
+        x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(a, b))
+    if resumed["start"] != every or not same:
+        fail(f"train launcher: the run resumed from step "
+             f"{resumed['start']} does not end bitwise on the "
+             "uninterrupted run's state")
+    log(f"train launcher: {cfg.name}, {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, vocab {cfg.vocab}, {full['n_params']:,} parameters"
+        f" in float32, remat on; {N} steps of {B} x {S} tokens in "
+        f"{wall:.1f} s (checkpoints every {every} steps included); loss "
+        + " ".join(f"{x:.4f}" for x in losses)
+        + f"; ms a step {step_s * 1e3:.1f} (median of steps 2-{N}), "
+        f"{tok_s:,.0f} tokens/s; K7 a step: {per_step}; peak "
+        + (f"{peak:.2f} GB" if peak is not None else "not measured")
+        + f"; resumed from step {every} in {resume_wall:.1f} s, bitwise "
+        f"equal ({len(a)} leaves)")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    del full, resumed, a, b
+    return dict(losses=losses, step_ms=step_s * 1e3, tokens_per_s=tok_s,
+                steps_ms=[h["seconds"] * 1e3 for h in hist],
+                wall_s=wall, resume_wall_s=resume_wall, per_step=per_step,
+                peak_gb=peak, n_params=cfg.param_count(), k7=k7)
+
+
+@contextlib.contextmanager
+def bound_bwd(fn):
+    """K7's backward call site (``ops.flash_attention_bh_bwd``, which the
+    ``autograd.Function`` calls) bound to ``fn`` while the block runs."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    saved = fa_ops.flash_attention_bh_bwd
+    fa_ops.flash_attention_bh_bwd = fn
+    try:
+        yield
+    finally:
+        fa_ops.flash_attention_bh_bwd = saved
+
+
+def drops_last_key_tile(q, k, v, o, lse, do, **kw):
+    """The planted backward fault: dK of the last 64-key tile left at
+    zero."""
+    from repro_torch.kernels.flash_attention import flash_attention_bh_bwd
+
+    dq, dk, dv = flash_attention_bh_bwd(q, k, v, o, lse, do, **kw)
+    dk = dk.clone()
+    dk[:, (k.shape[1] - 1) // 64 * 64:] = 0
+    return dq, dk, dv
+
+
+def flat_grad(grads):
+    from repro_torch.train.tree import ravel
+
+    return ravel(grads)[0]
+
+
+def oracle_part(model, params, shard: dict, on_card: bool) -> dict:
+    """One lane-step (loss and gradient of one sequence) through the
+    kernels, its K7 calls recorded; again with K7's forward and backward
+    bound to their plain versions (the model's ``attention.flash`` bound to
+    ``attention_ref``, autograd of which is the plain backward): the loss
+    within ``ORACLE_LOSS_TOL`` and the gradient's relative norm within
+    ``ORACLE_GRAD_TOL``; and with dK's last key tile zeroed
+    (:func:`drops_last_key_tile`), which the same check must refuse.
+    Every distinct recorded K7 forward and backward call held to the plain
+    versions in bf16 and float32; the backward's and forward's calls timed
+    from a cold L2 (float32, the path's type, and bf16)."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.train.trainer import value_and_grad
+
+    def loss_fn(p, b):
+        return model.loss(p, b)[0]
+
+    recorded: dict = {}
+    bwd_calls: list = []
+    real_bwd = fa_ops.flash_attention_bh_bwd
+
+    def recording_bwd(q, k, v, o, lse, do, **kw):
+        bwd_calls.append(dict(q=q, k=k, v=v, o=o, lse=lse, do=do,
+                              kv_len=k.shape[1], q_offset=0, **kw))
+        return real_bwd(q, k, v, o, lse, do, **kw)
+
+    before = k7_counts()
+    with recording_serve_kernel_calls(recorded, "train"), \
+            bound_bwd(recording_bwd):
+        loss, g = value_and_grad(loss_fn, params, shard)
+    card_sync(on_card)
+    per_step = k7_since(before)
+    check_k7_per_step(per_step, model.cfg.n_layers, "lane-step", on_card)
+    g = flat_grad(g)
+    with plain_kernels():
+        loss_p, g_p = value_and_grad(loss_fn, params, shard)
+    g_p = flat_grad(g_p)
+    with bound_bwd(drops_last_key_tile):
+        loss_f, g_f = value_and_grad(loss_fn, params, shard)
+    g_f = flat_grad(g_f)
+
+    def gap(x, y):
+        return float(torch.linalg.vector_norm(x - y)
+                     / torch.linalg.vector_norm(y))
+
+    loss_err = abs(float(loss) - float(loss_p)) / abs(float(loss_p))
+    grad_err, fault_err = gap(g, g_p), gap(g_f, g_p)
+    if not (math.isfinite(float(loss)) and loss_err <= ORACLE_LOSS_TOL
+            and grad_err <= ORACLE_GRAD_TOL):
+        fail(f"train oracle: loss {float(loss)} vs plain {float(loss_p)} "
+             f"(rel {loss_err:.3e}, tolerance {ORACLE_LOSS_TOL}); gradient "
+             f"relative norm {grad_err:.3e} (tolerance {ORACLE_GRAD_TOL})")
+    if not fault_err > ORACLE_GRAD_TOL:
+        fail(f"train oracle: the planted fault (dK's last key tile at zero) "
+             f"gives a gradient {fault_err:.3e} off the plain one, within "
+             f"the tolerance {ORACLE_GRAD_TOL}: not refused")
+    log(f"train oracle: a lane-step ({shard['tokens'].shape[1]} tokens) "
+        f"through the kernels against K7 bound to its plain versions: "
+        f"loss {float(loss):.6f} vs {float(loss_p):.6f} (rel {loss_err:.3e},"
+        f" tolerance {ORACLE_LOSS_TOL}), gradient relative norm "
+        f"{grad_err:.3e} (tolerance {ORACLE_GRAD_TOL}); K7 a lane-step "
+        f"{per_step}")
+    log(f"train oracle refuses a planted fault, K7's backward leaves dK of "
+        f"its last key tile at zero: gradient relative norm {fault_err:.3e}")
+    del g, g_p, g_f
+
+    # every distinct K7 call of the lane-step against the plain versions
+    kernels = {"flash_attention_bh": {"max_abs_err": 0.0, "checked": 0},
+               BWD: {"max_abs_err": 0.0, "checked": 0}}
+    fwd = {}
+    for (name, phase, *_), (n, args) in recorded.items():
+        a = {k: v.detach() if torch.is_tensor(v) else v
+             for k, v in args[0].items()}
+        err = check_serve_call(name, a, phase)
+        kernels[name]["max_abs_err"] = max(kernels[name]["max_abs_err"], err)
+        kernels[name]["checked"] += 1
+        fwd[serve_call_shape(name, a)] = (a, n)
+        log(f"kernel {name} train {serve_call_shape(name, a)}: {n} calls, "
+            "within tolerance of its plain version in bf16 and float32")
+    distinct = {}
+    for c in bwd_calls:
+        distinct.setdefault(serve_call_shape(BWD, c), (c, 0))
+        distinct[serve_call_shape(BWD, c)] = (
+            c, distinct[serve_call_shape(BWD, c)][1] + 1)
+    for shape, (c, n) in distinct.items():
+        a = {k: v.detach() if torch.is_tensor(v) else v for k, v in c.items()}
+        err = check_bwd_call(a, "train")
+        kernels[BWD]["max_abs_err"] = max(kernels[BWD]["max_abs_err"], err)
+        kernels[BWD]["checked"] += 1
+        log(f"kernel {BWD} train {shape}: {n} calls, within tolerance of "
+            "its plain version in bf16 and float32, lse too")
+    largest = max((c for c, _ in distinct.values()),
+                  key=lambda c: serve_work(BWD, c))
+    a = {k: v.detach() if torch.is_tensor(v) else v
+         for k, v in largest.items()}
+    t = time_bwd_call(a, on_card)
+    log_timed(BWD, "lane-step call", a, t)
+    log_timed("flash_attention_bh", "lane-step call (its forward)", a,
+              t["forward"])
+    bf = dict(a, **{n: a[n].to(torch.bfloat16)
+                    for n in ("q", "k", "v", "do")})
+    bf = bwd_call(bf, bf["do"])
+    t16 = time_bwd_call(bf, on_card)
+    log_timed(BWD, "lane-step call", bf, t16)
+    log_timed("flash_attention_bh", "lane-step call (its forward)", bf,
+              t16["forward"])
+    kernels[BWD].update(t, bf16=t16)
+    kernels["flash_attention_bh"].update(train=t["forward"],
+                                         train_bf16=t16["forward"])
+    recorded.clear()
+    bwd_calls.clear()
+    return dict(loss_err=loss_err, grad_err=grad_err, fault_err=fault_err,
+                per_step=per_step, kernels=kernels)
+
+
+def sync_check(rows, g, loss, label: str) -> dict:
+    """The synced float32 gradient ``g`` (the optimizer's) and loss against
+    the float64 mean of the lanes' ``rows`` ``[P, n + 1]``: elementwise
+    within ``P 2^-24 mean_p |g_p|`` (the rounding of a P-term float32 sum
+    and of its last division by P), the loss within 1e-6 relative; in
+    column chunks, so that no float64 copy of the rows is made whole.
+    Returns the worst excess over the bound (<= 0 within it), the
+    violating elements and the loss's relative error."""
+    import torch
+
+    P, m = rows.shape
+    n = m - 1
+    worst, bad = -math.inf, 0
+    chunk = 1 << 24
+    for lo in range(0, n, chunk):
+        r = rows[:, lo:min(n, lo + chunk)].double()
+        mean, absmean = r.mean(0), r.abs().mean(0)
+        err = (g[lo:lo + r.shape[1]].double() - mean).abs()
+        excess = err - P * 2.0 ** -24 * absmean
+        worst = max(worst, float(excess.max()))
+        bad += int((excess > 0).sum())
+    want = float(rows[:, n].double().mean())
+    loss_err = abs(float(loss) - want) / abs(want)
+    return dict(label=label, worst_excess=worst, violations=bad,
+                loss_err=loss_err, ok=bad == 0 and loss_err <= 1e-6)
+
+
+def dp_part(model, params, batch: dict, on_card: bool) -> dict:
+    """``make_dp_train_step`` on ``DP_LANES`` data-parallel lanes stacked on
+    the card, one sequence a lane, under each of ``DP_METHODS`` (``auto``
+    under ``LASSEN``), each one step from the same state.  The explicit
+    variants' synced gradient (the optimizer's) and loss held to the lanes'
+    rows by :func:`sync_check`, their relative norm gap to ``"jit"``'s
+    gradient printed; K7 per lane-step as :func:`check_k7_per_step`; a
+    planted fault (the plan's first round dropped) refused by the same
+    check; ms a step and the peak memory."""
+    import torch
+
+    from repro_torch.core.costmodel import LASSEN
+    from repro_torch.core.dense import dense_round_runner
+    from repro_torch.train import trainer
+    from repro_torch.train.optimizer import init_opt_state
+
+    def loss_fn(p, b):
+        return model.loss(p, b)[0]
+
+    seen: dict = {}
+    real_sync, real_adamw = trainer.make_grad_sync, trainer.adamw_update
+
+    def recording_sync(*args, **kw):
+        sync, plan, sel = real_sync(*args, **kw)
+        seen["plan"] = plan
+
+        def rec(flat):
+            seen["rows"] = flat
+            return sync(flat)
+
+        return rec, plan, sel
+
+    def recording_adamw(cfg, p, g, st):
+        seen["grads"] = flat_grad(g)
+        return real_adamw(cfg, p, g, st)
+
+    out: dict = {"variants": {}}
+    g_jit = None
+    start = k7_counts()
+    trainer.make_grad_sync, trainer.adamw_update = (recording_sync,
+                                                    recording_adamw)
+    try:
+        for method in DP_METHODS:
+            step, sel = trainer.make_dp_train_step(
+                loss_fn, params, trainer.TrainerConfig(grad_sync=method),
+                {"dp": DP_LANES}, "dp", machine=LASSEN)
+            state = trainer.TrainState(params, init_opt_state(params), None)
+            free_card(on_card)
+            if on_card:
+                torch.cuda.reset_peak_memory_stats()
+            before = k7_counts()
+            card_sync(on_card)
+            t0 = time.perf_counter()
+            new, metrics = step(state, batch)
+            loss = float(metrics["loss"])
+            card_sync(on_card)
+            secs = time.perf_counter() - t0
+            lanes = 1 if method == "jit" else DP_LANES
+            per = k7_since(before, lanes)
+            check_k7_per_step(per, model.cfg.n_layers,
+                              f"DP {method} lane-step" if lanes > 1
+                              else "DP jit step", on_card)
+            peak = (torch.cuda.max_memory_allocated() / 1e9 if on_card
+                    else None)
+            rec = dict(ms=secs * 1e3, loss=loss, peak_gb=peak,
+                       chosen=None if sel is None else sel.chosen,
+                       modeled_s=None if sel is None
+                       else sel.modeled_times, k7=per)
+            g = seen.pop("grads")
+            if method == "jit":
+                g_jit = g
+                rec["loss_err"] = 0.0
+            else:
+                rows = seen.pop("rows")
+                chk = sync_check(rows, g, loss, method)
+                rec.update(chk, norm_gap=float(
+                    torch.linalg.vector_norm(g - g_jit)
+                    / torch.linalg.vector_norm(g_jit)),
+                    jit_loss_err=abs(loss - out["variants"]["jit"]["loss"])
+                    / abs(out["variants"]["jit"]["loss"]))
+                if not chk["ok"] or rec["jit_loss_err"] > 1e-6:
+                    fail(f"train DP {method}: synced gradient {chk['violations']}"
+                         f" elements past P 2^-24 mean_p |g_p| of the lanes' "
+                         f"float64 mean (worst excess {chk['worst_excess']:.3e}),"
+                         f" loss {chk['loss_err']:.3e} off their mean and "
+                         f"{rec['jit_loss_err']:.3e} off jit's (tolerance 1e-6)")
+                if method == DP_METHODS[-1]:
+                    # the planted fault: the plan's first round dropped
+                    plan = seen["plan"]
+                    broken = dataclasses.replace(plan, rounds=plan.rounds[1:])
+                    run = dense_round_runner(broken, rows.device)
+                    n_seg, cmax = len(plan.counts), plan.cmax
+                    P, m = rows.shape
+                    buf = rows.new_zeros((P, n_seg + 1, cmax))
+                    buf.view(P, -1)[:, :m] = rows
+                    faulty = run.padded(buf).view(P, -1)[0, :m] / P
+                    del buf
+                    bad = sync_check(rows, faulty, float(faulty[-1]),
+                                     "planted")
+                    del faulty
+                    if bad["ok"]:
+                        fail("train DP: the sync with its plan's first round "
+                             "dropped passes the check")
+                    rec["planted"] = bad
+                    log(f"train DP refuses a planted fault, the plan's first "
+                        f"round dropped: {bad['violations']} elements past "
+                        f"the bound (worst excess {bad['worst_excess']:.3e}), "
+                        f"loss {bad['loss_err']:.3e} off")
+                del rows
+            del g, new, state, step
+            out["variants"][method] = rec
+            log(f"train DP {method}"
+                + (f" (chose {rec['chosen']} under LASSEN)" if sel else "")
+                + f": one step of {DP_LANES} x {batch['tokens'].shape[1]} "
+                f"tokens in {rec['ms']:.1f} ms, loss {loss:.6f}"
+                + (f"; synced gradient within P 2^-24 mean_p |g_p| of the "
+                   f"lanes' float64 mean (worst excess "
+                   f"{rec['worst_excess']:.3e}), loss {rec['loss_err']:.3e} "
+                   f"off it and {rec['jit_loss_err']:.3e} off jit's; "
+                   f"relative norm gap to jit's gradient {rec['norm_gap']:.3e}"
+                   if method != "jit" else "")
+                + f"; K7 a {'lane-' if method != 'jit' else ''}step {per}; "
+                f"peak " + (f"{peak:.2f} GB" if peak is not None
+                            else "not measured"))
+    finally:
+        trainer.make_grad_sync, trainer.adamw_update = real_sync, real_adamw
+    del g_jit
+    out["k7"] = k7_since(start)
+    return out
+
+
+def grad_sync_problem_check(device: str) -> dict:
+    """``repro``'s ``check_grad_sync`` problem (a 16 x 4 linear model in
+    float64, 32 rows over 8 lanes) with the port's functions on
+    ``device``: every explicit variant within 1e-12 of ``"jit"`` in loss
+    and updated parameters."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.costmodel import LASSEN
+    from repro_torch.train import trainer
+    from repro_torch.train.optimizer import init_opt_state
+
+    rng = np.random.default_rng(1)
+    params = {"w": torch.tensor(rng.normal(size=(16, 4)), device=device),
+              "b": torch.tensor(rng.normal(size=(4,)), device=device)}
+    batch = {"x": torch.tensor(rng.normal(size=(32, 16)), device=device),
+             "y": torch.tensor(rng.normal(size=(32, 4)), device=device)}
+
+    def loss_fn(p, b):
+        return torch.mean((b["x"] @ p["w"] + p["b"] - b["y"]) ** 2)
+
+    outs = {}
+    for method in DP_METHODS:
+        step, _ = trainer.make_dp_train_step(
+            loss_fn, params, trainer.TrainerConfig(grad_sync=method),
+            {"dp": DP_LANES}, "dp", machine=LASSEN)
+        st, m = step(trainer.TrainState(params, init_opt_state(params),
+                                        None), batch)
+        outs[method] = (st.params, float(m["loss"]))
+    ref_p, ref_l = outs["jit"]
+    worst = 0.0
+    for method in DP_METHODS[1:]:
+        p, loss = outs[method]
+        worst = max(worst, abs(loss - ref_l), *(
+            float(torch.max(torch.abs(p[k] - ref_p[k]))) for k in ref_p))
+    if not worst < 1e-12:
+        fail(f"train DP check_grad_sync problem: a variant {worst:.3e} off "
+             "jit (tolerance 1e-12)")
+    log(f"train DP check_grad_sync problem (16 x 4, float64): ring, hier, "
+        f"auto within {worst:.3e} of jit (tolerance 1e-12)")
+    return dict(worst=worst)
+
+
+def train_run(device: str = "cuda", reduced_config: bool = False,
+              out_dir: Optional[Path] = None) -> dict:
+    """The train phase.  Its main path first, with every launch count set to
+    0 just before it and read just after: the launcher
+    (:func:`launcher_part`) and the explicit DP grad sync
+    (:func:`dp_part`).  Then, off the main path, the lane-step oracle and
+    K7's calls (:func:`oracle_part`), K7's backward at calls the path does
+    not make (:func:`bwd_edge_checks`) and ``check_grad_sync``'s problem
+    (:func:`grad_sync_problem_check`).  Returns their records, K7's forward
+    and backward records, and the main path's calls and CUDA launches."""
+    import torch
+
+    from repro_torch.kernels import CUDA_LAUNCHES, LAUNCHES, reset_launches
+    from repro_torch.models import Model
+    from repro_torch.train import DataConfig, TokenStream
+
+    on_card = device == "cuda"
+    sizes = train_sizes(on_card)
+    cfg = train_config(reduced_config, sizes)
+    out_dir = out_dir or ROOT / "chiprun_out" / "train_ckpt"
+    t0 = time.perf_counter()
+    reset_launches()
+    launcher = launcher_part(cfg, device, on_card, sizes, out_dir,
+                             reduced_config)
+    free_card(on_card)
+    model = Model(cfg, device=device)
+    params = model.init_params(seed=TRAIN_SEED)
+    data = TokenStream(DataConfig(vocab=cfg.vocab, seq_len=sizes["lane_seq"],
+                                  global_batch=DP_LANES, seed=TRAIN_SEED))
+    batch = {k: torch.as_tensor(v, device=device)
+             for k, v in data.global_batch_at(0).items()}
+    dp = dp_part(model, params, batch, on_card)
+    launches = {k: LAUNCHES[k] for k in launcher["k7"]}
+    cuda = {k: CUDA_LAUNCHES[k] for k in launcher["k7"]}
+    free_card(on_card)
+    oracle = oracle_part(model, params,
+                         {k: v[:1] for k, v in batch.items()}, on_card)
+    oracle["kernels"][BWD]["edge_max_abs_err"] = bwd_edge_checks(
+        device, torch.Generator().manual_seed(TRAIN_SEED))
+    del params, model, batch
+    free_card(on_card)
+    problem = grad_sync_problem_check(device)
+    seconds = time.perf_counter() - t0
+    log(f"train phase: K7 calls on the main path (the launcher's runs and "
+        f"the DP steps) {launches}, CUDA launches {cuda}; {seconds:.1f} s")
+    return dict(launcher=launcher, oracle=oracle, dp=dp, problem=problem,
+                kernels=oracle["kernels"], launches=launches,
+                cuda_launches=cuda, seconds=seconds)
+
+
 # ------------------------------------------------------------ adaptive phase
 ADAPT_REFIT_EVERY = 8          # decode steps between online refits
 ADAPT_WARM_STEPS = 9           # decode steps before the steady window: the
@@ -4625,7 +5381,7 @@ def build_kernels() -> None:
     from repro_torch.kernels.ssd_scan import cuda as ssd_cuda
 
     libs = [sp_cuda.LIBRARY, mp_cuda.LIBRARY, fa_cuda.LIBRARY,
-            ssd_cuda.LIBRARY]
+            fa_cuda.BWD_LIBRARY, ssd_cuda.LIBRARY]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as pool:
         paths = list(pool.map(lambda lib: lib.build(), libs))
@@ -4688,6 +5444,12 @@ def main() -> int:
     if dense["launches"]["flash_attention_bh"] <= 0:
         fail("K7 never launched on the dense path")
     done("dense")
+    free_card(True)                     # the dense models leave the card
+    train = train_run("cuda")
+    missing = [k for k, n in train["launches"].items() if n <= 0]
+    if missing:
+        fail(f"kernels never launched on the train path: {missing}")
+    done("train")
     part_res = partitioned_run(res)
     part = part_res["partitioned"]["launches"]
     missing = [k for k in ("spmv_ell_blocked", "spmv_ell_blocked_skip")
@@ -4727,10 +5489,12 @@ def main() -> int:
             elastic_launches=elastic["launches"][name],
             max_abs_err=rec["max_abs_err"],
             **{k: rec[k] for k in timing}))
-    # K7 runs on the three serve paths: its launches are theirs and its
-    # times those of its largest DeepSeek prefill call; the dense path's
-    # timed calls (gemma3-1b's d 256, qwen2-0.5b's d 64) under "dense"
-    paths = (serve, hybrid, dense)
+    # K7 runs on the three serve paths and the train path: its launches
+    # are theirs and its times those of its largest DeepSeek prefill call;
+    # the dense path's timed calls (gemma3-1b's d 256, qwen2-0.5b's d 64)
+    # under "dense", the train path's (its forward in float32 and bf16)
+    # under "train"
+    paths = (serve, hybrid, dense, train)
     for name, (source, replaces) in {**SERVE_SOURCES,
                                      **HYBRID_SOURCES}.items():
         path = serve if name in SERVE_SOURCES else hybrid
@@ -4747,6 +5511,13 @@ def main() -> int:
                 | {"prefill": {k: t[k] for k in keys}}
                 for arch, t in dense["kernels"][name]["by_arch"].items()}
             extra["head_dim_probe"] = dense["kernels"][name]["head_dim_probe"]
+        if name in train["kernels"]:
+            tk = train["kernels"][name]
+            extra["train_launches"] = train["launches"][name]
+            extra["train_cuda_launches"] = train["cuda_launches"][name]
+            extra["train"] = {part: {k: tk[part][k]
+                                     for k in timing + ("slept_ms",)}
+                              for part in ("train", "train_bf16")}
         records.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=sum(p["launches"].get(name, 0) for p in paths),
@@ -4758,6 +5529,14 @@ def main() -> int:
                if "decode" in rec else {}),
             **({"split": rec["split"]} if "split" in rec else {}),
             **extra))
+    rec = train["kernels"][BWD]
+    records.append(dict(
+        name=BWD, route="cuda", source=TRAIN_BWD_SOURCE,
+        replaces=TRAIN_BWD_REPLACES, launches=train["launches"][BWD],
+        cuda_launches=train["cuda_launches"][BWD],
+        max_abs_err=rec["max_abs_err"],
+        **{k: rec[k] for k in timing + ("slept_ms",)},
+        bf16={k: rec["bf16"][k] for k in timing + ("slept_ms",)}))
     print(json.dumps({"kernels": records}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

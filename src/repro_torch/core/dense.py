@@ -566,7 +566,10 @@ def _pack_device_rounds(plan: DensePlan):
 def dense_round_runner(plan: DensePlan, device=None) -> Callable:
     """``run(buf) -> buf`` over the rank-stacked segment buffer ``buf``
     ``[P, n_seg, cmax]`` (zero padding beyond ``counts[s]``) on ``device``
-    (default ``cuda``).
+    (default ``cuda``); ``run.padded(buf)`` runs the same rounds in place
+    on a buffer that already carries the zero sentinel row
+    ``[P, n_seg + 1, cmax]`` and returns it (the gradient sync's buffer,
+    which ``run``'s padded copy would double).
 
     Each plan round is one gather of every rank's outgoing segment rows,
     one permutation along the rank dim (a rank that receives nothing gets
@@ -594,19 +597,23 @@ def dense_round_runner(plan: DensePlan, device=None) -> Callable:
             red,
         ))
 
-    def run(buf: torch.Tensor) -> torch.Tensor:
-        sentinel = buf.new_zeros((P, 1) + buf.shape[2:])
-        buf = torch.cat([buf, sentinel], dim=1)
+    def run_padded(buf: torch.Tensor) -> torch.Tensor:
         for src_of, g, s, red in rounds:
             send = buf[ranks, g]                  # [P, w, cmax], a copy
             send = torch.cat([send, send.new_zeros((1,) + send.shape[1:])])
             recv = send[src_of]
+            del send
             if red:
                 buf[ranks, s] = buf[ranks, s] + recv
             else:
                 buf[ranks, s] = recv
-        return buf[:, :-1]
+        return buf
 
+    def run(buf: torch.Tensor) -> torch.Tensor:
+        sentinel = buf.new_zeros((P, 1) + buf.shape[2:])
+        return run_padded(torch.cat([buf, sentinel], dim=1))[:, :-1]
+
+    run.padded = run_padded
     return run
 
 

@@ -33,7 +33,11 @@
 // Key tiles are 64 keys in bf16 and 32 in float32; shared memory is two
 // stages of K and V, [keys][D + 16 bytes] each (Q is staged over the
 // second): 102,400 bytes at (bf16, D 192), two blocks an SM; 61,440 at
-// (bf16, D 112), three.
+// (bf16, D 112), three.  Given an lse pointer (training; null when
+// serving) the epilogue also writes each row's log-sum-exp of the scaled
+// scores, m + log l in natural units, fp32 [BH, Tq], +inf for a row that
+// sees no key, so that the backward (flash_attention_bwd.cu) recomputes P
+// as exp(S scale - lse) without a second pass over the keys.
 //
 // Decode (Tq = 1), split over keys.  One query row per (batch, head) reads
 // its visible K and V once: bound by bytes (DeepSeek's step, 64 rows over
@@ -90,8 +94,8 @@ struct Prefill {
 template <typename E, int D>
 __global__ void __launch_bounds__(kThreads) attn_prefill_kernel(
     const E* __restrict__ q, const E* __restrict__ k, const E* __restrict__ v,
-    E* __restrict__ o, int Tq, int Tk, float scale, int causal, int window,
-    int kv_len, int q_offset) {
+    E* __restrict__ o, float* __restrict__ lse, int Tq, int Tk, float scale,
+    int causal, int window, int kv_len, int q_offset) {
   using Sm = Prefill<E, D>;
   constexpr int kLd = Sm::kLd, kKeys = Sm::kKeys;
   constexpr int kVec = 16 / (int)sizeof(E);
@@ -264,6 +268,16 @@ __global__ void __launch_bounds__(kThreads) attn_prefill_kernel(
   const float inv_a = l_a > 0.0f ? 1.0f / l_a : 0.0f;
   const float inv_b = l_b > 0.0f ? 1.0f / l_b : 0.0f;
   const int ra = q0 + 16 * warp + g, rb = ra + 8;
+  if (lse != nullptr && c == 0) {
+    // m is in log2 units: lse = (m + log2 l) ln 2
+    const float kLn2 = 0.6931471805599453f;
+    if (ra < Tq) {
+      lse[bh * Tq + ra] = l_a > 0.0f ? (m_a + log2f(l_a)) * kLn2 : INFINITY;
+    }
+    if (rb < Tq) {
+      lse[bh * Tq + rb] = l_b > 0.0f ? (m_b + log2f(l_b)) * kLn2 : INFINITY;
+    }
+  }
 #pragma unroll
   for (int n = 0; n < kNT; ++n) {
     const int col = 8 * n + 2 * c;
@@ -513,7 +527,7 @@ __global__ void __launch_bounds__(kThreads) attn_decode_combine_kernel(
 // ----------------------------------------------------------------- launch
 template <typename E, int D>
 int launch_prefill(const void* q, const void* k, const void* v, void* o,
-                   int BH, int Tq, int Tk, float scale, int causal,
+                   float* lse, int BH, int Tq, int Tk, float scale, int causal,
                    int window, int kv_len, int q_offset, cudaStream_t stream) {
   constexpr int bytes = Prefill<E, D>::kBytes;
   auto kernel = attn_prefill_kernel<E, D>;
@@ -530,8 +544,8 @@ int launch_prefill(const void* q, const void* k, const void* v, void* o,
   dim3 grid(BH, (Tq + kRows - 1) / kRows);
   kernel<<<grid, kThreads, bytes, stream>>>(
       static_cast<const E*>(q), static_cast<const E*>(k),
-      static_cast<const E*>(v), static_cast<E*>(o), Tq, Tk, scale, causal,
-      window, kv_len, q_offset);
+      static_cast<const E*>(v), static_cast<E*>(o), lse, Tq, Tk, scale,
+      causal, window, kv_len, q_offset);
   return (int)cudaGetLastError();
 }
 
@@ -553,14 +567,14 @@ int launch_decode(const void* q, const void* k, const void* v, void* o,
 #define REPRO_ATTN_DIMS(X) X(64) X(112) X(128) X(192) X(256)
 
 template <typename E>
-int prefill(const void* q, const void* k, const void* v, void* o, int BH,
-            int Tq, int Tk, int D, float scale, int causal, int window,
-            int kv_len, int q_offset, void* stream) {
+int prefill(const void* q, const void* k, const void* v, void* o,
+            float* lse, int BH, int Tq, int Tk, int D, float scale,
+            int causal, int window, int kv_len, int q_offset, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define REPRO_ATTN_CASE(DIM)                                                 \
   case DIM:                                                                  \
-    return launch_prefill<E, DIM>(q, k, v, o, BH, Tq, Tk, scale, causal,     \
-                                  window, kv_len, q_offset, s);
+    return launch_prefill<E, DIM>(q, k, v, o, lse, BH, Tq, Tk, scale,        \
+                                  causal, window, kv_len, q_offset, s);
   switch (D) {
     REPRO_ATTN_DIMS(REPRO_ATTN_CASE)
     default:
@@ -621,22 +635,22 @@ const char* repro_cuda_error_string(int err) {
 }
 
 // K7, Tq > 1: [BH, Tq, D] / [BH, Tk, D] rows; D one of 64, 112, 128, 192,
-// 256.
+// 256; lse [BH, Tq] fp32, or null.
 int repro_flash_attention_bh_bf16(const void* q, const void* k,
-                                  const void* v, void* o, int BH, int Tq,
-                                  int Tk, int D, float scale, int causal,
-                                  int window, int kv_len, int q_offset,
-                                  void* stream) {
-  return prefill<__nv_bfloat16>(q, k, v, o, BH, Tq, Tk, D, scale, causal,
-                                window, kv_len, q_offset, stream);
+                                  const void* v, void* o, float* lse, int BH,
+                                  int Tq, int Tk, int D, float scale,
+                                  int causal, int window, int kv_len,
+                                  int q_offset, void* stream) {
+  return prefill<__nv_bfloat16>(q, k, v, o, lse, BH, Tq, Tk, D, scale,
+                                causal, window, kv_len, q_offset, stream);
 }
 
 int repro_flash_attention_bh_f32(const void* q, const void* k, const void* v,
-                                 void* o, int BH, int Tq, int Tk, int D,
-                                 float scale, int causal, int window,
+                                 void* o, float* lse, int BH, int Tq, int Tk,
+                                 int D, float scale, int causal, int window,
                                  int kv_len, int q_offset, void* stream) {
-  return prefill<float>(q, k, v, o, BH, Tq, Tk, D, scale, causal, window,
-                        kv_len, q_offset, stream);
+  return prefill<float>(q, k, v, o, lse, BH, Tq, Tk, D, scale, causal,
+                        window, kv_len, q_offset, stream);
 }
 
 // K7, Tq = 1: the visible keys [k_begin, k_end) in n_split splits of 64,

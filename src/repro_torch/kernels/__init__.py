@@ -11,7 +11,8 @@ fails to build or launch raises.
 :data:`LAUNCHES` counts kernel calls by kernel name.  A wrapper adds one
 where it launches its kernel and nowhere else, so a run can show that its
 main path went through the kernels.  :data:`CUDA_LAUNCHES` counts the CUDA
-kernel launches those calls made (K7's one-row decode makes two a call).
+kernel launches those calls made (K7's one-row decode makes two a call,
+its backward three).
 """
 from __future__ import annotations
 
@@ -27,6 +28,7 @@ LAUNCHES: Dict[str, int] = {
     "gather_rows": 0,
     "combine_rows": 0,
     "flash_attention_bh": 0,
+    "flash_attention_bh_bwd": 0,
     "ssd_scan_h": 0,
 }
 

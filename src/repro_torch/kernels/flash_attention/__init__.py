@@ -1,5 +1,9 @@
-from .ops import attention, flash_attention_bh
-from .ref import attention_ref, flash_attention_bh_ref
+from .ops import (FlashAttentionBH, attention, flash_attention_bh,
+                  flash_attention_bh_bwd)
+from .ref import (attention_ref, flash_attention_bh_bwd_ref,
+                  flash_attention_bh_ref)
 
-__all__ = ["attention", "attention_ref", "flash_attention_bh",
+__all__ = ["FlashAttentionBH", "attention", "attention_ref",
+           "flash_attention_bh", "flash_attention_bh_bwd",
+           "flash_attention_bh_bwd_ref",
            "flash_attention_bh_ref"]

@@ -9,8 +9,11 @@ partials) with ``torch.empty``, launches on the current stream, raises if
 the launch reports an error, and counts the call in
 :data:`repro_torch.kernels.LAUNCHES`.  A call with one query row runs the
 split-key decode, two CUDA launches (the splits' partials, then their
-combine); any other runs the prefill kernel.  Shapes are validated by
-:func:`repro_torch.kernels.flash_attention.ops.flash_attention_bh`.
+combine); any other runs the prefill kernel, which on request also writes
+the rows' log-sum-exp for the backward.  The backward
+(``csrc/flash_attention_bwd.cu``) is three CUDA launches a call and counts
+under ``flash_attention_bh_bwd``.  Shapes are validated by
+:mod:`repro_torch.kernels.flash_attention.ops`.
 """
 from __future__ import annotations
 
@@ -19,7 +22,7 @@ import torch
 from ..build import F, CudaLibrary, I, P, check_cuda
 from .ref import DECODE_SPLIT, decode_splits
 
-_PREFILL = [P, P, P, P, I, I, I, I, F, I, I, I, I]
+_PREFILL = [P, P, P, P, P, I, I, I, I, F, I, I, I, I]
 _DECODE = [P, P, P, P, P, P, I, I, I, F, I, I, I]
 LIBRARY = CudaLibrary("flash_attention.cu", {
     "repro_flash_attention_bh_bf16": _PREFILL,
@@ -27,32 +30,53 @@ LIBRARY = CudaLibrary("flash_attention.cu", {
     "repro_flash_decode_bf16": _DECODE,
     "repro_flash_decode_f32": _DECODE,
 })
+_BWD = [P, P, P, P, P, P, P, P, P, P, I, I, I, I, F, I, I]
+BWD_LIBRARY = CudaLibrary("flash_attention_bwd.cu", {
+    "repro_flash_attention_bh_bwd_bf16": _BWD,
+    "repro_flash_attention_bh_bwd_f32": _BWD,
+})
 _SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
 ROWS_PER_BLOCK = 64          # kRows in the source
 HEAD_DIMS = (64, 112, 128, 192, 256)    # the head dims the source is built for
+BWD_HEAD_DIMS = (64, 128)    # the head dims the backward is built for
+
+
+def _check_operands(name: str, dims, q: torch.Tensor, **kv: torch.Tensor):
+    """One CUDA device, contiguity, bf16 or f32 throughout, a built head
+    dim, 16-byte aligned rows, a grid within its limit; the device."""
+    device = check_cuda(name, q=q, **kv)
+    if q.dtype not in _SUFFIX or any(t.dtype != q.dtype
+                                     for t in kv.values()):
+        raise TypeError(f"{name}: dtypes q {q.dtype}, " + ", ".join(
+            f"{n} {t.dtype}" for n, t in kv.items())
+            + "; expected all bfloat16 or all float32")
+    d = q.shape[2]
+    if d not in dims:
+        raise ValueError(f"{name}: head dim {d}, expected one of {dims}")
+    rows = max(t.shape[1] for t in (q, *kv.values()))
+    if -(-rows // ROWS_PER_BLOCK) > 65535:
+        raise ValueError(f"{name}: {rows} rows, above the kernel's grid")
+    if any(t.data_ptr() % 16 for t in (q, *kv.values())):
+        raise ValueError(f"{name}: operands not 16-byte aligned")
+    return device
 
 
 def flash_attention_bh(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        scale: float, causal: bool, window: int, kv_len: int,
-                       q_offset: int) -> torch.Tensor:
-    """K7 on the card: q [BH, Tq, d], k / v [BH, Tk, d] -> [BH, Tq, d]."""
-    device = check_cuda("flash_attention_bh", q=q, k=k, v=v)
-    if q.dtype not in _SUFFIX or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash_attention_bh: q/k/v {q.dtype}/{k.dtype}/"
-                        f"{v.dtype}, expected all bfloat16 or all float32")
+                       q_offset: int, lse: bool = False):
+    """K7 on the card: q [BH, Tq, d], k / v [BH, Tk, d] -> [BH, Tq, d];
+    with ``lse`` (a call of Tq > 1) -> (out, lse [BH, Tq] float32)."""
+    device = _check_operands("flash_attention_bh", HEAD_DIMS, q, k=k, v=v)
     BH, Tq, d = q.shape
     Tk = k.shape[1]
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention_bh: head dim {d}, expected one "
-                         f"of {HEAD_DIMS}")
-    if -(-Tq // ROWS_PER_BLOCK) > 65535:
-        raise ValueError(f"flash_attention_bh: {Tq} query rows, above the "
-                         "kernel's grid")
-    if any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("flash_attention_bh: q/k/v not 16-byte aligned")
     out = torch.empty_like(q)
+    lse_out = (torch.empty(BH, Tq, dtype=torch.float32, device=device)
+               if lse else None)
+    if lse and Tq == 1:
+        raise ValueError("flash_attention_bh: the log-sum-exp is written by "
+                         "the prefill kernel (Tq > 1), not by the decode")
     if not out.numel():
-        return out
+        return (out, lse_out) if lse else out
     sfx = _SUFFIX[q.dtype]
     if Tq == 1:
         begin, end, n_split = decode_splits(Tk, kv_len, causal, window,
@@ -72,6 +96,39 @@ def flash_attention_bh(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return out
     LIBRARY.launch("flash_attention_bh", f"repro_flash_attention_bh_{sfx}",
                    device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                   out.data_ptr(), BH, Tq, Tk, d, float(scale), int(causal),
-                   int(window), int(kv_len), int(q_offset))
-    return out
+                   out.data_ptr(), lse_out.data_ptr() if lse else None,
+                   BH, Tq, Tk, d, float(scale), int(causal), int(window),
+                   int(kv_len), int(q_offset))
+    return (out, lse_out) if lse else out
+
+
+def flash_attention_bh_bwd(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, o: torch.Tensor,
+                           lse: torch.Tensor, do: torch.Tensor, scale: float,
+                           causal: bool, window: int):
+    """K7's backward on the card for a prefill call over all its keys from
+    position 0: (dq, dk, dv) in the inputs' dtype.  Three launches: the
+    rows' D = rowsum(dO o) into an fp32 scratch, then dK / dV by key
+    tiles and dQ by query tiles."""
+    device = _check_operands("flash_attention_bh_bwd", BWD_HEAD_DIMS, q,
+                             k=k, v=v, o=o, do=do)
+    check_cuda("flash_attention_bh_bwd", lse=lse)
+    BH, Tq, d = q.shape
+    Tk = k.shape[1]
+    if o.shape != q.shape or do.shape != q.shape \
+            or lse.shape != (BH, Tq) or lse.dtype != torch.float32:
+        raise ValueError(
+            f"flash_attention_bh_bwd: o {tuple(o.shape)}, do "
+            f"{tuple(do.shape)}, lse {tuple(lse.shape)} {lse.dtype}; "
+            f"expected {tuple(q.shape)} twice and ({BH}, {Tq}) float32")
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if not (dq.numel() or dk.numel()):
+        return dq, dk, dv
+    delta = torch.empty(BH, Tq, dtype=torch.float32, device=device)
+    BWD_LIBRARY.launch(
+        "flash_attention_bh_bwd", f"repro_flash_attention_bh_bwd_"
+        f"{_SUFFIX[q.dtype]}", device, q.data_ptr(), k.data_ptr(),
+        v.data_ptr(), o.data_ptr(), lse.data_ptr(), do.data_ptr(),
+        delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), BH,
+        Tq, Tk, d, float(scale), int(causal), int(window), cuda_launches=3)
+    return dq, dk, dv

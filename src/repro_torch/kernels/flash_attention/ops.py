@@ -8,6 +8,16 @@ kernel masks the ragged edges itself and is built for each head dim the
 served models use (``cuda.HEAD_DIMS``), so the port pads nothing; another
 head dim raises.  CPU tensors go to the plain version in :mod:`.ref`, CUDA
 tensors to the kernel in :mod:`.cuda`.
+
+When a gradient is wanted (grad mode on and q, k or v requiring one),
+:func:`flash_attention_bh` runs through :class:`FlashAttentionBH`, an
+``autograd.Function`` that saves q, k, v, the output and the rows'
+log-sum-exp and takes K7's backward: the CUDA kernel on the card, the plain
+version on the CPU.  The backward takes a prefill call over all its keys
+from position 0 (the training forward's); another call that wants a
+gradient raises.  Otherwise nothing is saved and serving runs as it did.
+GQA's broadcast stays outside the function, so autograd sums dk / dv over
+each query-head group.
 """
 from __future__ import annotations
 
@@ -17,7 +27,58 @@ import torch
 
 from .. import use_kernel
 from . import cuda
-from .ref import flash_attention_bh_ref
+from .ref import (
+    check_backward_form,
+    flash_attention_bh_bwd_ref,
+    flash_attention_bh_ref,
+)
+
+
+class FlashAttentionBH(torch.autograd.Function):
+    """K7 with its backward: q [BH, Tq, d], k / v [BH, Tk, d] ->
+    [BH, Tq, d], a prefill call over all its keys from position 0."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale: float, causal: bool, window: int):
+        if use_kernel(q, k, v):
+            q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+            out, lse = cuda.flash_attention_bh(
+                q, k, v, scale, causal, int(window), k.shape[1], 0, lse=True)
+        else:
+            out, lse = flash_attention_bh_ref(
+                q, k, v, scale=scale, causal=causal, window=window,
+                return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (scale, causal, int(window))
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        scale, causal, window = ctx.args
+        dq, dk, dv = flash_attention_bh_bwd(q, k, v, out, lse, do,
+                                            scale=scale, causal=causal,
+                                            window=window)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention_bh_bwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+    lse: torch.Tensor, do: torch.Tensor, *, scale: float, causal: bool,
+    window: int = 0,
+):
+    """K7's backward over flattened (batch * heads) for a prefill call over
+    all its keys from position 0: (dq, dk, dv) from the forward's q, k, v,
+    output o and lse and the output's gradient do; the kernel on the card,
+    the plain version on the CPU."""
+    check_backward_form(q.shape[1], k.shape[1], k.shape[1], 0)
+    if not use_kernel(q, k, v, o, lse, do):
+        return flash_attention_bh_bwd_ref(q, k, v, o, lse, do, scale=scale,
+                                          causal=causal, window=window)
+    return cuda.flash_attention_bh_bwd(
+        q.contiguous(), k.contiguous(), v.contiguous(), o.contiguous(),
+        lse.contiguous(), do.contiguous(), float(scale), bool(causal),
+        int(window))
 
 
 def flash_attention_bh(
@@ -36,6 +97,10 @@ def flash_attention_bh(
     if not 0 <= kv_len <= Tk or int(window) < 0 or int(q_offset) < 0:
         raise ValueError(f"flash_attention_bh: kv_len {kv_len} (Tk {Tk}), "
                          f"window {window}, q_offset {q_offset}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        check_backward_form(q.shape[1], Tk, kv_len, int(q_offset))
+        return FlashAttentionBH.apply(q, k, v, float(scale), bool(causal),
+                                      int(window))
     if not use_kernel(q, k, v):
         return flash_attention_bh_ref(q, k, v, scale=scale, causal=causal,
                                       window=window, kv_len=kv_len,

@@ -3,7 +3,11 @@
 It materializes the ``[Tq, Tk]`` scores of each (batch * head) row in at
 least float32, masks them (padding ``key < kv_len``, causal
 ``key <= q_offset + row``, window ``key > q_pos - window``) and normalizes.
-A row whose every key is masked outputs 0.  It is the CPU path of
+A row whose every key is masked outputs 0.
+:func:`flash_attention_bh_bwd_ref` is the plain version of K7's backward
+(the CPU path of the ``autograd.Function`` in :mod:`.ops`, and the value
+the CUDA backward is held against on the card); ``repro`` has no Pallas
+backward, its gradient is ``jax``'s VJP of ``attention_ref``.  It is the CPU path of
 :mod:`repro_torch.kernels.flash_attention.ops` and the value the CUDA kernel
 is held against on the card; :func:`attention_ref` is the plain version of
 ``ops.attention``, which a model can be bound to as its oracle.
@@ -52,8 +56,12 @@ def flash_attention_bh_ref(
     kv_len: int | None = None,
     q_offset: int = 0,
     operand: Optional[Callable] = None,
-) -> torch.Tensor:
-    """K7 over flattened (batch * heads): out [BH, Tq, d] in q's dtype."""
+    return_lse: bool = False,
+):
+    """K7 over flattened (batch * heads): out [BH, Tq, d] in q's dtype;
+    with ``return_lse`` also the rows' log-sum-exp of the scaled scores,
+    lse [BH, Tq] in the compute dtype, at least float32 (+inf where a row
+    sees no key), which the backward takes."""
     Tq, Tk = q.shape[1], k.shape[1]
     kv_len = Tk if kv_len is None else int(kv_len)
     cdt = torch.promote_types(q.dtype, torch.float32)
@@ -69,7 +77,59 @@ def flash_attention_bh_ref(
         p = operand(p)
     out = torch.einsum("bqk,bkd->bqd", p, v.to(cdt))
     out = out / torch.where(l == 0, torch.ones_like(l), l)
-    return out.to(q.dtype)
+    if not return_lse:
+        return out.to(q.dtype)
+    lse = torch.where(l == 0, float("inf"), m + torch.log(l))[..., 0]
+    return out.to(q.dtype), lse
+
+
+def check_backward_form(Tq: int, Tk: int, kv_len: int,
+                        q_offset: int) -> None:
+    """The backward's form: a prefill call (Tq > 1) over all its keys
+    (kv_len == Tk) from position 0; anything else raises."""
+    if Tq <= 1 or int(kv_len) != Tk or int(q_offset) != 0:
+        raise ValueError(
+            f"flash_attention_bh backward: Tq {Tq}, kv_len {kv_len} (Tk "
+            f"{Tk}), q_offset {q_offset}; the backward takes a prefill "
+            "call (Tq > 1) with kv_len == Tk and q_offset == 0")
+
+
+def flash_attention_bh_bwd_ref(
+    q: torch.Tensor,          # [BH, Tq, d]
+    k: torch.Tensor,          # [BH, Tk, d]
+    v: torch.Tensor,          # [BH, Tk, d]
+    o: torch.Tensor,          # [BH, Tq, d], the forward's output
+    lse: torch.Tensor,        # [BH, Tq] float32, the forward's lse
+    do: torch.Tensor,         # [BH, Tq, d], the output's gradient
+    *,
+    scale: float,
+    causal: bool,
+    window: int = 0,
+    kv_len: int | None = None,
+    q_offset: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K7's backward, the kernel's formulas materialized in at least
+    float32: P = exp(S scale - lse) on the visible keys (0 elsewhere),
+    D = rowsum(dO o), dV = P^T dO, dS = P (dO V^T - D),
+    dQ = scale dS K, dK = scale dS^T Q; (dq, dk, dv) in the inputs'
+    dtypes.  A row that sees no key (lse +inf) has P = 0 and adds
+    nothing."""
+    Tq, Tk = q.shape[1], k.shape[1]
+    kv_len = Tk if kv_len is None else int(kv_len)
+    check_backward_form(Tq, Tk, kv_len, q_offset)
+    cdt = torch.promote_types(q.dtype, torch.float32)
+    qc, kc, vc, oc, dc = (t.to(cdt) for t in (q, k, v, o, do))
+    s = torch.einsum("bqd,bkd->bqk", qc, kc) * scale
+    mask = attention_mask(Tq, Tk, causal, int(window), kv_len,
+                          int(q_offset), q.device)
+    p = torch.where(mask, torch.exp(s - lse.to(cdt)[..., None]),
+                    torch.zeros((), dtype=cdt, device=q.device))
+    delta = (dc * oc).sum(dim=-1, keepdim=True)
+    dv = torch.einsum("bqk,bqd->bkd", p, dc)
+    ds = p * (torch.einsum("bqd,bkd->bqk", dc, vc) - delta)
+    dq = torch.einsum("bqk,bkd->bqd", ds, kc) * scale
+    dk = torch.einsum("bqk,bqd->bkd", ds, qc) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def attention_ref(

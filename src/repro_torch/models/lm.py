@@ -7,13 +7,20 @@ schedule ``windows`` (gemma3's 5 local : 1 global), ``init_params``,
 ``_positions`` (M-RoPE's ``[B, 3, T]`` for vlm), ``_embed_in`` (token ids,
 or precomputed ``embeds`` for the vlm frontend stub), ``_logits`` and
 ``forward`` -> the dense block loop / ``_forward_moe`` / the SSM layer loop
-/ ``_forward_hybrid`` (with ``_shared_attn_block``).  The audio family and
+/ ``_forward_hybrid`` (with ``_shared_attn_block``), and for training
+``forward(return_hidden=True)``, the chunked cross entropy ``_xent`` and
+``loss`` (the dense and vlm families, whose one kernel, K7, has a
+backward).  The audio family and
 the moe family with GQA attention are still to port (ROADMAP Queue 1) and
 raise ``NotImplementedError``.
 
 The forward runs eagerly, layer by layer, on one device: attention, norms,
 projections and SSM blocks on the whole batch, the MoE layers on the mesh's
-devices stacked as lanes (:mod:`repro_torch.models.moe`).
+devices stacked as lanes (:mod:`repro_torch.models.moe`).  With ``remat``
+(the default, as in ``repro``) and a gradient wanted, each dense layer runs
+under ``torch.utils.checkpoint`` (non-reentrant): its activations are
+recomputed in the backward, which is where ``jax.checkpoint`` recomputes
+them, so K7's forward runs twice a layer in a training step.
 """
 from __future__ import annotations
 
@@ -21,6 +28,7 @@ import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
 from ..core.cache import default_plan_cache
@@ -68,6 +76,7 @@ class Model:
         moe_cap_factor: float = 1.25,
         machine_params: Optional[MachineParams] = None,
         device=None,
+        remat: bool = True,
     ):
         moe = cfg.family == "moe"
         if cfg.family == "audio":
@@ -91,6 +100,7 @@ class Model:
         self.ep_over_pods = ep_over_pods
         self.moe_cap_factor = moe_cap_factor
         self.machine_params = machine_params
+        self.remat = remat
         self.device = resolve_device(device)
         self.batch_axes = tuple(a for a in ("pod", "data")
                                 if a in self.mesh.axes)
@@ -217,18 +227,29 @@ class Model:
             return x + y, c, aux, (out[3], out[2])
         return x + y, c, aux
 
-    def forward(self, params: Dict,
-                inputs: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
+    def _maybe_remat(self, fn, x: torch.Tensor, *args):
+        """``fn(x, *args)``, under a checkpoint when remat is on and a
+        gradient is wanted (x requires one)."""
+        if self.remat and torch.is_grad_enabled() and x.requires_grad:
+            return checkpoint(fn, x, *args, use_reentrant=False)
+        return fn(x, *args)
+
+    def forward(self, params: Dict, inputs: Dict,
+                return_hidden: bool = False
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
         """``inputs``: {"tokens": [B, S]} or {"embeds": [B, S, d]} (and
-        optionally "positions").  Returns (logits [B, S, V], aux loss)."""
+        optionally "positions").  Returns (logits [B, S, V], aux loss);
+        ``return_hidden=True`` returns the final-norm hidden states instead
+        of the logits (the chunked cross entropy projects them block by
+        block)."""
         x = self._embed_in(params, inputs)
         B, T = x.shape[:2]
         pos = self._positions(inputs, T, B)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         if self.cfg.family in ("dense", "vlm"):
             for i, w in enumerate(self.windows):
-                x, _ = dense_block(_stack_slice(params["blocks"], i), x, pos,
-                                   self.cfg, window=w)
+                x = self._maybe_remat(self._dense_layer, x,
+                                      params["blocks"], i, pos, w)
         elif self.cfg.family == "moe":
             x, aux = self._forward_moe(params, x, pos)
         elif self.cfg.family == "ssm":
@@ -237,7 +258,81 @@ class Model:
                                    self.cfg)
         else:
             x = self._forward_hybrid(params, x, pos)
-        return self._logits(params, rms_norm(x, params["final_norm"])), aux
+        h = rms_norm(x, params["final_norm"])
+        if return_hidden:
+            return h, aux
+        return self._logits(params, h), aux
+
+    def _dense_layer(self, x: torch.Tensor, blocks: Dict, i: int,
+                     pos: torch.Tensor, window: int) -> torch.Tensor:
+        return dense_block(_stack_slice(blocks, i), x, pos, self.cfg,
+                           window=window)[0]
+
+    # ----------------------------------------------------------------- loss
+
+    @staticmethod
+    def _xent_block(xc: torch.Tensor, head: torch.Tensor, lc: torch.Tensor,
+                    mc: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One sequence block's (ce sum, z sum) over [B, blk] positions."""
+        logits = xc @ head.to(xc.dtype)                  # [B, blk, V]
+        m = torch.amax(logits, dim=-1, keepdim=True).detach().to(
+            torch.float32)
+        lf = logits.to(torch.float32)
+        lse = torch.log(torch.sum(torch.exp(lf - m), dim=-1)) + m[..., 0]
+        ll = torch.gather(lf, -1, lc.long()[..., None])[..., 0]
+        return torch.sum((lse - ll) * mc), torch.sum(torch.square(lse) * mc)
+
+    def _xent(self, x: torch.Tensor, head: torch.Tensor,
+              labels: torch.Tensor, mask: torch.Tensor,
+              block: int = 512) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Sequence-chunked softmax cross entropy, ``repro``'s ``_xent``:
+        the logits are made one block of ``block`` positions at a time
+        (the whole sequence when ``S % block`` or ``S <= block``), each
+        block checkpointed, so neither the [B, S, V] logits nor their
+        float32 backward are ever held whole; the max under
+        ``stop_gradient``.  Returns (ce_sum, z_sum), float32 scalars."""
+        S = x.shape[1]
+        if S % block or S <= block:
+            block = S
+        ce_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+        z_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+        for lo in range(0, S, block):
+            args = (x[:, lo:lo + block], head, labels[:, lo:lo + block],
+                    mask[:, lo:lo + block])
+            if torch.is_grad_enabled() and x.requires_grad:
+                ce, z = checkpoint(self._xent_block, *args,
+                                   use_reentrant=False)
+            else:
+                ce, z = self._xent_block(*args)
+            ce_sum = ce_sum + ce
+            z_sum = z_sum + z
+        return ce_sum, z_sum
+
+    def loss(self, params: Dict, batch: Dict) -> Tuple[torch.Tensor, Dict]:
+        """``ce + 1e-4 z / denom + aux`` over the positions of
+        ``batch["loss_mask"]`` (all by default), with the tied head
+        ``embed.T`` under ``tie_embeddings``; (total, {"ce", "aux",
+        "zloss"}).  The dense and vlm families only: the MoE and SSM
+        kernels (K5, K6, K8) have no backward yet (ROADMAP Queue 1)."""
+        cfg = self.cfg
+        if cfg.family not in ("dense", "vlm"):
+            raise NotImplementedError(
+                f"{cfg.name}: training the {cfg.family} family is not "
+                "ported yet; its kernels have no backward (ROADMAP Queue 1)")
+        x, aux = self.forward(params, batch, return_hidden=True)
+        head = (params["embed"].T if cfg.tie_embeddings
+                else params["lm_head"])
+        labels = batch["labels"]
+        mask = batch.get("loss_mask")
+        if mask is None:
+            mask = torch.ones(labels.shape, dtype=torch.float32,
+                              device=labels.device)
+        denom = torch.clamp(torch.sum(mask), min=1.0)
+        ce_sum, z_sum = self._xent(x, head, labels, mask)
+        ce = ce_sum / denom
+        zloss = 1e-4 * z_sum / denom
+        total = ce + zloss + aux
+        return total, {"ce": ce, "aux": aux, "zloss": zloss}
 
     def _forward_moe(self, params: Dict, x: torch.Tensor,
                      pos: torch.Tensor):

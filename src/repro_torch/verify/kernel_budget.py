@@ -222,7 +222,7 @@ def check_kernel_attributes(attrs: Sequence[Dict],
 
 
 def read_kernel_attributes(device=None):
-    """``(attributes of every kernel of the four CUDA sources, the card's
+    """``(attributes of every kernel of the five CUDA sources, the card's
     limits)``, read on the card (each source is built if it is not)."""
     from ..kernels.flash_attention import cuda as fa_cuda
     from ..kernels.moe_pack import cuda as mp_cuda
@@ -230,7 +230,7 @@ def read_kernel_attributes(device=None):
     from ..kernels.ssd_scan import cuda as ssd_cuda
 
     libs = (sp_cuda.LIBRARY, mp_cuda.LIBRARY, fa_cuda.LIBRARY,
-            ssd_cuda.LIBRARY)
+            fa_cuda.BWD_LIBRARY, ssd_cuda.LIBRARY)
     attrs: List[Dict] = []
     for lib in libs:
         attrs += lib.kernel_attributes(device)

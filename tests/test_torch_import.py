@@ -71,7 +71,11 @@ def test_port_imports_no_jax_and_no_reference_package():
                 "repro_torch.runtime.checkpoint",
                 "repro_torch.verify.invariants",
                 "repro_torch.verify.executor_audit",
-                "repro_torch.verify.kernel_budget"):
+                "repro_torch.verify.kernel_budget",
+                "repro_torch.train", "repro_torch.train.optimizer",
+                "repro_torch.train.compression", "repro_torch.train.data",
+                "repro_torch.train.trainer", "repro_torch.train.tree",
+                "repro_torch.launch", "repro_torch.launch.train"):
         assert mod in report["imported"]
     assert "chip_smoke" in report["loaded"]
     assert [m for m in report["loaded"] if _reference(m)] == []

@@ -382,6 +382,53 @@ def test_chip_smoke_dense_phase_runs_on_cpu():
     assert res["launches"] == {"flash_attention_bh": 0}      # no card
 
 
+def test_chip_smoke_train_phase_runs_on_cpu(tmp_path):
+    """The train phase at the reduced ``qwen2-0.5b`` (vocab 128): the
+    launcher's loss falls and its resumed run is bitwise the uninterrupted
+    one (checkpoints under ``tmp_path``, removed after); the lane-step
+    oracle passes and refuses the planted backward fault; every DP variant
+    passes its sync check and the planted sync fault is refused;
+    ``check_grad_sync``'s problem within 1e-12; K7's edge calls pass; no
+    launch off the card.  The backward's call site is the one the
+    ``autograd.Function`` calls."""
+    from repro_torch.kernels.flash_attention import flash_attention_bh
+
+    chip_smoke = _chip_smoke()
+    res = chip_smoke.train_run("cpu", reduced_config=True,
+                               out_dir=tmp_path / "ck")
+    assert not (tmp_path / "ck").exists()
+    losses = res["launcher"]["losses"]
+    assert losses[-1] < losses[0] - chip_smoke.TRAIN_LOSS_DROP
+    oracle = res["oracle"]
+    assert oracle["loss_err"] <= chip_smoke.ORACLE_LOSS_TOL
+    assert oracle["grad_err"] <= chip_smoke.ORACLE_GRAD_TOL
+    assert oracle["fault_err"] > chip_smoke.ORACLE_GRAD_TOL
+    kernels = res["kernels"]
+    assert kernels[chip_smoke.BWD]["checked"] == 1
+    assert kernels[chip_smoke.BWD]["bound_ms"] > 0.0
+    assert kernels[chip_smoke.BWD]["bf16"]["bound_ms"] > 0.0
+    assert kernels["flash_attention_bh"]["train"]["bound_ms"] > 0.0
+    variants = res["dp"]["variants"]
+    assert set(variants) == set(chip_smoke.DP_METHODS)
+    for method in chip_smoke.DP_METHODS[1:]:
+        assert variants[method]["ok"] and variants[method]["norm_gap"] < 1e-5
+        assert variants[method]["chosen"] in ("ring", "hier")
+    assert variants["ring"]["chosen"] == "ring"
+    assert variants["hier"]["chosen"] == "hier"
+    assert not variants["auto"]["planted"]["ok"]
+    assert res["problem"]["worst"] < 1e-12
+    assert res["launches"] == {"flash_attention_bh": 0, chip_smoke.BWD: 0}
+    assert chip_smoke.bwd_edge_checks(
+        "cpu", torch.Generator().manual_seed(0)) == 0.0
+    calls = []
+    q = torch.randn(2, 8, 64, requires_grad=True)
+    with chip_smoke.bound_bwd(lambda *a, **kw: calls.append(kw) or (
+            torch.zeros_like(a[0]), torch.zeros_like(a[1]),
+            torch.zeros_like(a[2]))):
+        flash_attention_bh(q, q, q, scale=0.125, causal=True).sum().backward()
+    assert calls == [dict(scale=0.125, causal=True, window=0)]
+
+
 @pytest.mark.skipif(torch.cuda.is_available(),
                     reason="with a card the script runs the A/B itself")
 def test_decode_ab_refuses_to_run_without_a_card():
