@@ -2759,8 +2759,11 @@ def serve_work(name: str, a: dict):
     BH, Tq, d = q.shape
     es = q.element_size()
     keys = min(a["kv_len"], k.shape[1])
+    # the mask broadcasts to [Tq, Tk]: without causal or window it is one
+    # row that every query shares
     pairs = int(attention_mask(Tq, k.shape[1], a["causal"], a["window"],
-                               a["kv_len"], a["q_offset"], q.device).sum())
+                               a["kv_len"], a["q_offset"], q.device)
+                .expand(Tq, k.shape[1]).sum())
     if name == BWD:
         # q, o, dO and lse in, dq out; k, v in, dk, dv out; five products
         return (4 * BH * Tq * d * es + 4 * BH * Tq + 4 * BH * keys * d * es,
@@ -3870,15 +3873,25 @@ BWD = "flash_attention_bh_bwd"
 # K7's forward log-sum-exp against the plain version's, normwise over the
 # rows that see a key (fp32 in both, from the same inputs)
 LSE_TOL = 1e-5
+# the float32 backward's tile sizes (cuda.BWD_ROWS, cuda.BWD_STEP: 32 rows
+# a block, 64 or 32 a step) and the window its edge calls take
+BWD_F32_TILES = (32, 64)
+BWD_EDGE_WINDOW = 20
 # K7's backward at calls the training path does not make: d 128, a
-# window, non-causal, a ragged T, rows that see no key; (BH, Tq, Tk, d,
-# causal, window)
+# window, non-causal, a ragged T, rows that see no key; T at each float32
+# tile size - 1, + 0 and + 1, at d 64 and 128, causal without and with a
+# window; and 420 blocks a pass, more than the 132 SMs x 3 of one wave;
+# (BH, Tq, Tk, d, causal, window)
 BWD_EDGE_CALLS = (
     (3, 100, 100, 64, True, 0),
     (2, 257, 257, 128, True, 0),
     (2, 130, 130, 64, True, 40),
     (2, 70, 45, 64, False, 0),
     (2, 90, 33, 128, False, 16),     # rows 48 on see no key
+    *((2, t, t, d, True, w) for tile in BWD_F32_TILES
+      for t in (tile - 1, tile, tile + 1) for d in (64, 128)
+      for w in (0, BWD_EDGE_WINDOW)),
+    (140, 96, 96, 64, True, 0),
 )
 
 

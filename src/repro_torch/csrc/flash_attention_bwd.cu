@@ -17,39 +17,45 @@
 // pair, 4.7 GFLOP for one 1,024-token sequence of qwen2-0.5b (14 heads of
 // 64, causal), against some 29 MB of q, k, v, o, dO in and dq, dk, dv out
 // in float32: 70 us on the CUDA cores at 67 TFLOP/s in float32, 4.8 us on
-// the tensor cores in bf16.  This first version is simple and
-// deterministic (no atomics, so a rerun is bitwise equal); it recomputes S
-// and dP in both passes, and wgmma / TMA are later work.  Three launches:
+// the tensor cores in bf16.  Deterministic (no atomics, so a rerun is
+// bitwise equal); S and dP are recomputed in both passes (seven products
+// where five would do), and wgmma / TMA are later work.  Three launches:
 //
 // 1. delta: one warp a row, D_i = sum_d dO o in fp32, into a scratch.
-// 2. dK / dV: a block of 4 warps owns 64 keys of one (batch, head), 16 a
-//    warp, K and V staged once; it walks the query steps (32 rows) that
-//    can see any of its keys (from the block's first key under the causal
-//    mask, to its last key + window - 1 under a window), staging Q, dO,
-//    lse and D of each.  A warp computes S^T = K Q^T and dP^T = V dO^T
-//    (16 keys x 32 queries) in registers, P^T and dS^T from them, and
-//    accumulates dV += P^T dO and dK += dS^T Q in fp32 registers, P^T
-//    and dS^T feeding the products from the score registers.
-// 3. dQ: a block owns 64 query rows, Q and dO staged once; it walks the
-//    key steps (32 keys) the rows can see, as the forward does, issued
-//    last row block first, and accumulates dQ += dS K.
+// 2. dK / dV by key tiles: a block stages its keys' K and V once and walks
+//    the query steps that can see any of them (from the block's first key
+//    under the causal mask, to its last key + window - 1 under a window),
+//    staging Q, dO, lse and D of each; it computes S^T = K Q^T and
+//    dP^T = V dO^T, P^T and dS^T from them, and accumulates dV += P^T dO
+//    and dK += dS^T Q in fp32 registers.
+// 3. dQ by query tiles: a block stages its rows' Q and dO once and walks
+//    the key steps the rows can see, as the forward does, issued last row
+//    block first, and accumulates dQ += dS K.
 //
-// Products run on tile_mma.cuh's warp tiles, as in the forward: in bf16
-// on the tensor cores with exact products of the bf16 inputs, P and dS
-// (fp32 intermediates) split into bf16 hi + lo so that they keep their
-// fp32 value to about 2^-17; in float32 by fp32 FMAs on the CUDA cores.
+// bf16 runs on tile_mma.cuh's warp tiles, as the forward does: a block of
+// 4 warps owns 64 rows (16 a warp) and walks 32 a step, the products on
+// the tensor cores with exact products of the bf16 inputs, P and dS (fp32
+// intermediates) split into bf16 hi + lo so that they keep their fp32
+// value to about 2^-17, P^T and dS^T feeding the products from the score
+// registers.  float32 runs attn_bwd_f32.cuh's register-blocked fp32 FMAs
+// from shared memory on the CUDA cores (32 rows a block, 64 or 32 a step).
 // Masked entries of P are set to 0, so a row that sees no key adds
 // nothing and gets a zero dq.  Built for D 64 and 128.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include "kernel_attrs.cuh"
 
+#include <type_traits>
+
+#include "attn_bwd_f32.cuh"
+#include "kernel_attrs.cuh"
 #include "tile_mma.cuh"
 
 namespace {
 
+using attn_bwd::kLog2e;
+using attn_bwd::seen;
 using tile::Frag;
 
 constexpr int kWarps = 4;
@@ -57,7 +63,6 @@ constexpr int kThreads = 32 * kWarps;
 constexpr int kRows = 16 * kWarps;     // rows a block owns
 constexpr int kStep = 32;              // rows of the other side a step
 constexpr unsigned kFull = 0xffffffffu;
-constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -95,13 +100,6 @@ __device__ __forceinline__ void stage_rows(E* dst, const E* src, int r0,
     const long long off = ok ? (long long)(r0 + r) * D + col : 0;
     tile::cp16(dst + r * B::kLd + col, src + off, ok);
   }
-}
-
-// query row qi sees key kj (kv_len == Tk, q_offset == 0)
-__device__ __forceinline__ bool seen(int qi, int kj, int Tq, int Tk,
-                                     int causal, int window) {
-  return qi < Tq && kj < Tk && (!causal || kj <= qi) &&
-         (window <= 0 || kj > qi - window);
 }
 
 // ------------------------------------------------------------------ delta
@@ -404,17 +402,73 @@ int allow_smem(Kernel kernel, int bytes, bool* done) {
   return 0;
 }
 
+// bf16: dK / dV and dQ on the mma.sync tiles
 template <typename E, int D>
-int launch_bwd(const void* q, const void* k, const void* v, const void* o,
-               const float* lse, const void* dO, float* delta, void* dq,
-               void* dk, void* dv, int BH, int Tq, int Tk, float scale,
-               int causal, int window, cudaStream_t stream) {
+int launch_passes(const E* q, const E* k, const E* v, const float* lse,
+                  const E* dO, const float* delta, E* dq, E* dk, E* dv,
+                  int BH, int Tq, int Tk, float scale, int causal,
+                  int window, cudaStream_t stream) {
   using B = Bwd<E, D>;
   static bool kv_set = false, q_set = false;
   int err = allow_smem(attn_bwd_dkdv_kernel<E, D>, B::kBytesKV, &kv_set);
   if (err) return err;
   err = allow_smem(attn_bwd_dq_kernel<E, D>, B::kBytesQ, &q_set);
   if (err) return err;
+  if (BH > 0 && Tk > 0) {
+    attn_bwd_dkdv_kernel<E, D>
+        <<<dim3(BH, (Tk + kRows - 1) / kRows), kThreads, B::kBytesKV,
+           stream>>>(q, k, v, dO, lse, delta, dk, dv, Tq, Tk, scale, causal,
+                     window);
+    err = (int)cudaGetLastError();
+    if (err) return err;
+  }
+  if (BH > 0 && Tq > 0) {
+    attn_bwd_dq_kernel<E, D>
+        <<<dim3(BH, (Tq + kRows - 1) / kRows), kThreads, B::kBytesQ,
+           stream>>>(q, k, v, dO, lse, delta, dq, Tq, Tk, scale, causal,
+                     window);
+    err = (int)cudaGetLastError();
+  }
+  return err;
+}
+
+// float32: dK / dV and dQ by register-blocked FMAs (attn_bwd_f32.cuh)
+template <int D>
+int launch_passes_f32(const float* q, const float* k, const float* v,
+                      const float* lse, const float* dO, const float* delta,
+                      float* dq, float* dk, float* dv, int BH, int Tq,
+                      int Tk, float scale, int causal, int window,
+                      cudaStream_t stream) {
+  namespace f = attn_bwd::f32;
+  using T = f::Tiles<D>;
+  static bool kv_set = false, q_set = false;
+  int err = allow_smem(f::attn_bwd_dkdv_f32_kernel<D>, T::kBytesKV, &kv_set);
+  if (err) return err;
+  err = allow_smem(f::attn_bwd_dq_f32_kernel<D>, T::kBytesQ, &q_set);
+  if (err) return err;
+  if (BH > 0 && Tk > 0) {
+    f::attn_bwd_dkdv_f32_kernel<D>
+        <<<dim3(BH, (Tk + f::kOwn - 1) / f::kOwn), f::kThreads, T::kBytesKV,
+           stream>>>(q, k, v, dO, lse, delta, dk, dv, Tq, Tk, scale, causal,
+                     window);
+    err = (int)cudaGetLastError();
+    if (err) return err;
+  }
+  if (BH > 0 && Tq > 0) {
+    f::attn_bwd_dq_f32_kernel<D>
+        <<<dim3(BH, (Tq + f::kOwn - 1) / f::kOwn), f::kThreads, T::kBytesQ,
+           stream>>>(q, k, v, dO, lse, delta, dq, Tq, Tk, scale, causal,
+                     window);
+    err = (int)cudaGetLastError();
+  }
+  return err;
+}
+
+template <typename E, int D>
+int launch_bwd(const void* q, const void* k, const void* v, const void* o,
+               const float* lse, const void* dO, float* delta, void* dq,
+               void* dk, void* dv, int BH, int Tq, int Tk, float scale,
+               int causal, int window, cudaStream_t stream) {
   const E* qe = static_cast<const E*>(q);
   const E* ke = static_cast<const E*>(k);
   const E* ve = static_cast<const E*>(v);
@@ -424,25 +478,21 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o,
     attn_bwd_delta_kernel<E, D>
         <<<(unsigned)((rows + kWarps - 1) / kWarps), kThreads, 0, stream>>>(
             static_cast<const E*>(o), ge, delta, rows);
-    err = (int)cudaGetLastError();
+    const int err = (int)cudaGetLastError();
     if (err) return err;
   }
-  if (BH > 0 && Tk > 0) {
-    attn_bwd_dkdv_kernel<E, D>
-        <<<dim3(BH, (Tk + kRows - 1) / kRows), kThreads, B::kBytesKV,
-           stream>>>(qe, ke, ve, ge, lse, delta, static_cast<E*>(dk),
-                     static_cast<E*>(dv), Tq, Tk, scale, causal, window);
-    err = (int)cudaGetLastError();
-    if (err) return err;
+  if constexpr (std::is_same<E, float>::value) {
+    return launch_passes_f32<D>(qe, ke, ve, lse, ge, delta,
+                                static_cast<float*>(dq),
+                                static_cast<float*>(dk),
+                                static_cast<float*>(dv), BH, Tq, Tk, scale,
+                                causal, window, stream);
+  } else {
+    return launch_passes<E, D>(qe, ke, ve, lse, ge, delta,
+                               static_cast<E*>(dq), static_cast<E*>(dk),
+                               static_cast<E*>(dv), BH, Tq, Tk, scale,
+                               causal, window, stream);
   }
-  if (rows > 0) {
-    attn_bwd_dq_kernel<E, D>
-        <<<dim3(BH, (Tq + kRows - 1) / kRows), kThreads, B::kBytesQ,
-           stream>>>(qe, ke, ve, ge, lse, delta, static_cast<E*>(dq), Tq,
-                     Tk, scale, causal, window);
-    err = (int)cudaGetLastError();
-  }
-  return err;
 }
 
 #define REPRO_ATTN_BWD_DIMS(X) X(64) X(128)
@@ -467,20 +517,31 @@ int backward(const void* q, const void* k, const void* v, const void* o,
 
 // ------------------------------------------------- attributes (verify)
 
-// Every kernel of this source at its launch: kThreads a block; dK / dV
-// and dQ with their dynamic shared memory.
-#define REPRO_ATTN_BWD_ENTRIES(E, EN, DIM)                                  \
+// Every kernel of this source at its launch: the delta kernel; bf16's
+// dK / dV and dQ (kThreads a block) and float32's (f32::kThreads, with the
+// blocks an SM their __launch_bounds__ promise), each with its dynamic
+// shared memory.
+#define REPRO_ATTN_BWD_DELTA(E, EN, DIM)                                    \
   {"attn_bwd_delta_kernel<" EN "," #DIM ">",                                \
-   (const void*)attn_bwd_delta_kernel<E, DIM>, kThreads, 0, 1},             \
-  {"attn_bwd_dkdv_kernel<" EN "," #DIM ">",                                 \
-   (const void*)attn_bwd_dkdv_kernel<E, DIM>, kThreads,                     \
-   Bwd<E, DIM>::kBytesKV, 1},                                               \
-  {"attn_bwd_dq_kernel<" EN "," #DIM ">",                                   \
-   (const void*)attn_bwd_dq_kernel<E, DIM>, kThreads, Bwd<E, DIM>::kBytesQ, \
-   1},
-#define REPRO_ATTN_BWD_BF16(DIM) \
-  REPRO_ATTN_BWD_ENTRIES(__nv_bfloat16, "bf16", DIM)
-#define REPRO_ATTN_BWD_F32(DIM) REPRO_ATTN_BWD_ENTRIES(float, "f32", DIM)
+   (const void*)attn_bwd_delta_kernel<E, DIM>, kThreads, 0, 1},
+#define REPRO_ATTN_BWD_BF16(DIM)                                            \
+  REPRO_ATTN_BWD_DELTA(__nv_bfloat16, "bf16", DIM)                          \
+  {"attn_bwd_dkdv_kernel<bf16," #DIM ">",                                   \
+   (const void*)attn_bwd_dkdv_kernel<__nv_bfloat16, DIM>, kThreads,         \
+   Bwd<__nv_bfloat16, DIM>::kBytesKV, 1},                                   \
+  {"attn_bwd_dq_kernel<bf16," #DIM ">",                                     \
+   (const void*)attn_bwd_dq_kernel<__nv_bfloat16, DIM>, kThreads,           \
+   Bwd<__nv_bfloat16, DIM>::kBytesQ, 1},
+#define REPRO_ATTN_BWD_F32(DIM)                                             \
+  REPRO_ATTN_BWD_DELTA(float, "f32", DIM)                                   \
+  {"attn_bwd_dkdv_f32_kernel<" #DIM ">",                                    \
+   (const void*)attn_bwd::f32::attn_bwd_dkdv_f32_kernel<DIM>,               \
+   attn_bwd::f32::kThreads, attn_bwd::f32::Tiles<DIM>::kBytesKV,            \
+   attn_bwd::f32::Tiles<DIM>::kBlocksKV},                                   \
+  {"attn_bwd_dq_f32_kernel<" #DIM ">",                                      \
+   (const void*)attn_bwd::f32::attn_bwd_dq_f32_kernel<DIM>,                 \
+   attn_bwd::f32::kThreads, attn_bwd::f32::Tiles<DIM>::kBytesQ,             \
+   attn_bwd::f32::Tiles<DIM>::kBlocksQ},
 
 const repro_attrs::KernelEntry* kernel_table(int* n) {
   static const repro_attrs::KernelEntry table[] = {
@@ -492,7 +553,7 @@ const repro_attrs::KernelEntry* kernel_table(int* n) {
 
 #undef REPRO_ATTN_BWD_F32
 #undef REPRO_ATTN_BWD_BF16
-#undef REPRO_ATTN_BWD_ENTRIES
+#undef REPRO_ATTN_BWD_DELTA
 
 }  // namespace
 

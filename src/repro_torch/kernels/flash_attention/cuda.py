@@ -12,7 +12,9 @@ split-key decode, two CUDA launches (the splits' partials, then their
 combine); any other runs the prefill kernel, which on request also writes
 the rows' log-sum-exp for the backward.  The backward
 (``csrc/flash_attention_bwd.cu``) is three CUDA launches a call and counts
-under ``flash_attention_bh_bwd``.  Shapes are validated by
+under ``flash_attention_bh_bwd``; its tiles are mirrored here
+(``BWD_ROWS``, ``BWD_STEP``) with the steps a block walks
+(:func:`bwd_query_steps`, :func:`bwd_key_steps`).  Shapes are validated by
 :mod:`repro_torch.kernels.flash_attention.ops`.
 """
 from __future__ import annotations
@@ -39,11 +41,43 @@ _SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
 ROWS_PER_BLOCK = 64          # kRows in the source
 HEAD_DIMS = (64, 112, 128, 192, 256)    # the head dims the source is built for
 BWD_HEAD_DIMS = (64, 128)    # the head dims the backward is built for
+# The backward's tiles by dtype: rows a block owns (keys in dK / dV,
+# queries in dQ; kRows, f32::kOwn) and rows of the other side a step by
+# head dim (kStep, f32::Tiles<D>::kStep)
+BWD_ROWS = {torch.bfloat16: 64, torch.float32: 32}
+BWD_STEP = {torch.bfloat16: {64: 32, 128: 32},
+            torch.float32: {64: 64, 128: 32}}
 
 
-def _check_operands(name: str, dims, q: torch.Tensor, **kv: torch.Tensor):
+def bwd_query_steps(k0: int, rows: int, step: int, Tq: int, Tk: int,
+                    causal: bool, window: int) -> range:
+    """The query steps a dK / dV block owning keys [k0, k0 + rows) walks,
+    ``step`` queries each, as the kernels compute them: from the block's
+    first key under the causal mask to its last key + window - 1 under a
+    window."""
+    k_last = min(k0 + rows, Tk) - 1
+    q_begin = k0 if causal else 0
+    q_end = min(Tq, k_last + window) if window > 0 else Tq
+    first = q_begin // step
+    return range(first, -(-q_end // step) if q_end > q_begin else first)
+
+
+def bwd_key_steps(q0: int, rows: int, step: int, Tq: int, Tk: int,
+                  causal: bool, window: int) -> range:
+    """The key steps a dQ block owning query rows [q0, q0 + rows) walks,
+    ``step`` keys each, as the kernels compute them."""
+    q_last = min(q0 + rows, Tq) - 1
+    k_end = min(Tk, q_last + 1) if causal else Tk
+    k_begin = max(0, q0 - window + 1) if window > 0 else 0
+    first = k_begin // step
+    return range(first, -(-k_end // step) if k_end > k_begin else first)
+
+
+def _check_operands(name: str, dims, q: torch.Tensor,
+                    rows_per_block: int = ROWS_PER_BLOCK, **kv: torch.Tensor):
     """One CUDA device, contiguity, bf16 or f32 throughout, a built head
-    dim, 16-byte aligned rows, a grid within its limit; the device."""
+    dim, 16-byte aligned rows, a grid of ``rows_per_block`` rows a block
+    within its limit; the device."""
     device = check_cuda(name, q=q, **kv)
     if q.dtype not in _SUFFIX or any(t.dtype != q.dtype
                                      for t in kv.values()):
@@ -54,7 +88,7 @@ def _check_operands(name: str, dims, q: torch.Tensor, **kv: torch.Tensor):
     if d not in dims:
         raise ValueError(f"{name}: head dim {d}, expected one of {dims}")
     rows = max(t.shape[1] for t in (q, *kv.values()))
-    if -(-rows // ROWS_PER_BLOCK) > 65535:
+    if -(-rows // rows_per_block) > 65535:
         raise ValueError(f"{name}: {rows} rows, above the kernel's grid")
     if any(t.data_ptr() % 16 for t in (q, *kv.values())):
         raise ValueError(f"{name}: operands not 16-byte aligned")
@@ -111,6 +145,7 @@ def flash_attention_bh_bwd(q: torch.Tensor, k: torch.Tensor,
     rows' D = rowsum(dO o) into an fp32 scratch, then dK / dV by key
     tiles and dQ by query tiles."""
     device = _check_operands("flash_attention_bh_bwd", BWD_HEAD_DIMS, q,
+                             rows_per_block=min(BWD_ROWS.values()),
                              k=k, v=v, o=o, do=do)
     check_cuda("flash_attention_bh_bwd", lse=lse)
     BH, Tq, d = q.shape
