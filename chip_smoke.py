@@ -181,6 +181,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import gc
 import inspect
 import itertools
@@ -1436,10 +1437,11 @@ def stand_in_attributes() -> list:
     return [dict(base, name="spmv_ell_kernel<f64>", source="spmv_ell.cu",
                  symbol="_Z15spmv_ell_kernelIdEvv", threads=256,
                  min_blocks=0),
-            dict(base, name="attn_prefill_kernel<f32,256>",
+            dict(base, name="attn_prefill_f32_kernel<256>",
                  source="flash_attention.cu",
-                 symbol="_Z19attn_prefill_kernelIfLi256EEvv", dyn_smem=smem,
-                 max_dyn_smem=smem, blocks_per_sm=1)]
+                 symbol="_ZN8attn_fwd3f3223attn_prefill_f32_kernelILi256EEEv"
+                        "PKfS3_S3_PfS4_iifiiii", dyn_smem=smem,
+                 max_dyn_smem=smem, blocks_per_sm=2, min_blocks=2)]
 
 
 def dense_phase(coarse_counts, device, on_card: bool,
@@ -3895,21 +3897,146 @@ BWD_EDGE_CALLS = (
 )
 
 
+# K7's float32 forward (attn_fwd_f32.cuh) at calls its path makes and does
+# not (:func:`fwd_edge_calls`); the window its tile-edge calls take
+FWD_EDGE_WINDOW = 20
+
+
+@functools.cache
+def fwd_edge_calls() -> tuple:
+    """K7's float32 forward edge calls: T = Tq = Tk at each float32 tile
+    size (``cuda.FWD_ROWS``, ``cuda.FWD_STEP``) - 1, + 0 and + 1, at every
+    head dim the source builds, causal, causal with a window and
+    non-causal; rows that see no key (48 on); kv_len < Tk with q_offset > 0
+    (chunked prefill, a window too); d 112 ragged, d 256 non-causal with
+    kv_len < Tk; and 720 blocks, more than the 132 SMs x 4 of one wave at
+    d 64; (BH, Tq, Tk, d, causal, window, kv_len, q_offset)."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import cuda as fa_cuda
+
+    f32 = torch.float32
+    tiles = sorted({fa_cuda.FWD_ROWS[f32], *fa_cuda.FWD_STEP[f32].values()})
+    return (
+        *((2, t, t, d, causal, w, t, 0) for tile in tiles
+          for t in (tile - 1, tile, tile + 1) for d in fa_cuda.HEAD_DIMS
+          for causal, w in ((True, 0), (True, FWD_EDGE_WINDOW), (False, 0))),
+        (2, 90, 33, 128, False, 16, 33, 0),      # rows 48 on see no key
+        (2, 17, 300, 128, True, 0, 201, 184),
+        (2, 40, 120, 64, True, 0, 100, 60),
+        (2, 16, 64, 192, True, 4, 44, 40),
+        (2, 100, 150, 112, True, 0, 150, 0),
+        (2, 33, 64, 256, False, 0, 50, 0),
+        (180, 100, 100, 64, True, 0, 100, 0),
+    )
+
+
 def forward_lse(a: dict):
-    """(out, lse) of the K7 forward call ``a``: the kernel on the card, the
-    plain version off it."""
+    """(out, lse) of the K7 forward call ``a`` (kv_len and q_offset where
+    it names them, else all keys from position 0): the kernel on the
+    card, the plain version off it."""
     from repro_torch.kernels import use_kernel
     from repro_torch.kernels.flash_attention import cuda as fa_cuda
     from repro_torch.kernels.flash_attention.ref import flash_attention_bh_ref
 
     q, k, v = (a[n].detach().contiguous() for n in ("q", "k", "v"))
+    kv_len, q_offset = a.get("kv_len", k.shape[1]), a.get("q_offset", 0)
     if use_kernel(q, k, v):
         return fa_cuda.flash_attention_bh(q, k, v, a["scale"], a["causal"],
-                                          a["window"], k.shape[1], 0,
+                                          a["window"], kv_len, q_offset,
                                           lse=True)
     return flash_attention_bh_ref(q, k, v, scale=a["scale"],
                                   causal=a["causal"], window=a["window"],
+                                  kv_len=kv_len, q_offset=q_offset,
                                   return_lse=True)
+
+
+def fwd_problems(got, a: dict):
+    """(what is wrong, the output's error) of ``got`` = (out, lse) of the
+    float32 forward call ``a`` against the plain version: the output
+    normwise within ``SERVE_TOL["float32"]``, lse within ``LSE_TOL`` on
+    the rows that see a key, the rows that see no key exactly 0 with an
+    lse of +inf."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.ref import flash_attention_bh_ref
+
+    out, lse = got
+    want, lse_ref = flash_attention_bh_ref(
+        a["q"], a["k"], a["v"], scale=a["scale"], causal=a["causal"],
+        window=a["window"], kv_len=a["kv_len"], q_offset=a["q_offset"],
+        return_lse=True)
+    seen = torch.isfinite(lse_ref)
+    bad = []
+    if out.shape != want.shape or out.dtype != want.dtype:
+        return [f"out {tuple(out.shape)} {out.dtype}, expected "
+                f"{tuple(want.shape)} {want.dtype}"], math.inf
+    if not bool(torch.isfinite(out).all()):
+        bad.append("non-finite output")
+    err = rel_err(out, want)
+    if not err <= SERVE_TOL["float32"]:
+        bad.append(f"output {err:.3e} off the plain version's (tolerance "
+                   f"{SERVE_TOL['float32']})")
+    if not torch.equal(torch.isfinite(lse), seen):
+        bad.append("lse infinite on other rows than the plain version's")
+    else:
+        lerr = rel_err(lse[seen], lse_ref[seen])
+        if not lerr <= LSE_TOL:
+            bad.append(f"lse {lerr:.3e} off (tolerance {LSE_TOL})")
+    if not (bool((out[~seen] == 0).all())
+            and bool((lse[~seen] == float("inf")).all())):
+        bad.append("a row that sees no key is not 0 with an lse of +inf")
+    return bad, err
+
+
+def fwd_edge_checks(device, gen) -> float:
+    """:func:`fwd_edge_calls` in float32 through K7's forward against the
+    plain version (:func:`fwd_problems`), a rerun of each bitwise equal to
+    the first; the planted fault (the plain forward with each row's last
+    visible key dropped: kv_len - 1 on a non-causal call) refused by the
+    same check.  Returns the largest output error."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.ref import flash_attention_bh_ref
+
+    worst = 0.0
+    calls = fwd_edge_calls()
+    for BH, Tq, Tk, d, causal, window, kv_len, q_offset in calls:
+        q = torch.randn(BH, Tq, d, generator=gen).to(device)
+        k, v = (torch.randn(BH, Tk, d, generator=gen).to(device)
+                for _ in range(2))
+        a = dict(q=q, k=k, v=v, scale=d ** -0.5, causal=causal,
+                 window=window, kv_len=kv_len, q_offset=q_offset)
+        label = (f"f32 edge [{BH}, {Tq}, {Tk}, {d}] "
+                 + ("causal" if causal else "non-causal")
+                 + (f" window {window}" if window else "")
+                 + (f" kv_len {kv_len}" if kv_len < Tk else "")
+                 + (f" q_offset {q_offset}" if q_offset else ""))
+        got = forward_lse(a)
+        bad, err = fwd_problems(got, a)
+        if bad:
+            fail(f"flash_attention_bh {label}: " + "; ".join(bad))
+        again = forward_lse(a)
+        if not all(torch.equal(x, y) for x, y in zip(got, again)):
+            fail(f"flash_attention_bh {label}: a rerun differs from the "
+                 "first run")
+        worst = max(worst, err)
+        if (BH, Tq, d, causal) == (2, 65, 64, False):
+            fault, _ = fwd_problems(flash_attention_bh_ref(
+                q, k, v, scale=a["scale"], causal=False, window=0,
+                kv_len=kv_len - 1, return_lse=True), a)
+            if not fault:
+                fail(f"flash_attention_bh {label}: the planted fault (each "
+                     "row's last visible key dropped) passes the check")
+            log(f"kernel flash_attention_bh {label} refuses a planted "
+                "fault, the plain forward with each row's last visible key "
+                "dropped: " + "; ".join(fault))
+    log(f"kernel flash_attention_bh f32 edge: {len(calls)} calls "
+        f"within tolerance of the plain version (output within "
+        f"{SERVE_TOL['float32']}, largest {worst:.3e}; lse within "
+        f"{LSE_TOL}; rows that see no key 0 and +inf), reruns bitwise "
+        "equal")
+    return worst
 
 
 def bwd_call(a: dict, do) -> dict:
@@ -4219,7 +4346,8 @@ def flat_grad(grads):
     return ravel(grads)[0]
 
 
-def oracle_part(model, params, shard: dict, on_card: bool) -> dict:
+def oracle_part(model, params, shard: dict, on_card: bool,
+                launcher_batch: int) -> dict:
     """One lane-step (loss and gradient of one sequence) through the
     kernels, its K7 calls recorded; again with K7's forward and backward
     bound to their plain versions (the model's ``attention.flash`` bound to
@@ -4229,7 +4357,9 @@ def oracle_part(model, params, shard: dict, on_card: bool) -> dict:
     (:func:`drops_last_key_tile`), which the same check must refuse.
     Every distinct recorded K7 forward and backward call held to the plain
     versions in bf16 and float32; the backward's and forward's calls timed
-    from a cold L2 (float32, the path's type, and bf16)."""
+    from a cold L2 (float32, the path's type, and bf16), and in float32 at
+    the launcher's call, its ``launcher_batch`` sequences in one
+    microbatch (seeded inputs of that shape)."""
     import torch
 
     from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -4327,13 +4457,57 @@ def oracle_part(model, params, shard: dict, on_card: bool) -> dict:
     log_timed(BWD, "lane-step call", bf, t16)
     log_timed("flash_attention_bh", "lane-step call (its forward)", bf,
               t16["forward"])
-    kernels[BWD].update(t, bf16=t16)
+    BH, T, d = a["q"].shape
+    gen = torch.Generator().manual_seed(TRAIN_SEED)
+    q, k, v, do = (torch.randn(BH * launcher_batch, T, d, generator=gen)
+                   .to(a["q"].device) for _ in range(4))
+    la = bwd_call(dict(q=q, k=k, v=v, scale=a["scale"], causal=a["causal"],
+                       window=a["window"], kv_len=T, q_offset=0), do)
+    tl = time_bwd_call(la, on_card)
+    log_timed(BWD, "launcher call", la, tl)
+    log_timed("flash_attention_bh", "launcher call (its forward)", la,
+              tl["forward"])
+    del q, k, v, do, la
+    kernels[BWD].update(t, bf16=t16, launcher=tl)
     kernels["flash_attention_bh"].update(train=t["forward"],
-                                         train_bf16=t16["forward"])
+                                         train_bf16=t16["forward"],
+                                         train_launcher=tl["forward"])
     recorded.clear()
     bwd_calls.clear()
     return dict(loss_err=loss_err, grad_err=grad_err, fault_err=fault_err,
                 per_step=per_step, kernels=kernels)
+
+
+def label_check(model, params, shard: dict, on_card: bool) -> dict:
+    """One lane-step (loss and gradient through ``Model.loss``) on a
+    sequence whose labels hold -1 and V, in the loss mask and out of it:
+    the loss and gradient must be finite (such a label picks no logit, as
+    in ``repro``), and the card must take work after it (a gather on such
+    a label would trip a device-side assert)."""
+    import torch
+
+    from repro_torch.train.trainer import value_and_grad
+
+    V = model.cfg.vocab
+    labels = shard["labels"].clone()
+    mask = torch.ones(labels.shape, dtype=torch.float32,
+                      device=labels.device)
+    labels[0, 1:5] = torch.tensor([-1, V, -1, V], dtype=labels.dtype)
+    mask[0, 3:5] = 0.0
+    b = dict(shard, labels=labels, loss_mask=mask)
+    loss, g = value_and_grad(lambda p, x: model.loss(p, x)[0], params, b)
+    g = flat_grad(g)
+    finite = math.isfinite(float(loss)) and bool(torch.isfinite(g).all())
+    card_sync(on_card)
+    after = float(torch.ones(8, device=labels.device).sum())
+    if not finite or after != 8.0:
+        fail(f"train labels -1 and V: loss {float(loss)}, gradient finite "
+             f"{bool(torch.isfinite(g).all())}, the card after it {after}")
+    log(f"train labels -1 and V (two in the mask, two out of it): loss "
+        f"{float(loss):.6f} and gradient finite; the card takes work after "
+        "it")
+    del g
+    return dict(loss=float(loss))
 
 
 def sync_check(rows, g, loss, label: str) -> dict:
@@ -4543,9 +4717,10 @@ def train_run(device: str = "cuda", reduced_config: bool = False,
     0 just before it and read just after: the launcher
     (:func:`launcher_part`) and the explicit DP grad sync
     (:func:`dp_part`).  Then, off the main path, the lane-step oracle and
-    K7's calls (:func:`oracle_part`), K7's backward at calls the path does
-    not make (:func:`bwd_edge_checks`) and ``check_grad_sync``'s problem
-    (:func:`grad_sync_problem_check`).  Returns their records, K7's forward
+    K7's calls (:func:`oracle_part`), a lane-step with labels -1 and V
+    (:func:`label_check`), K7's backward and float32 forward at calls the
+    path does not make (:func:`bwd_edge_checks`, :func:`fwd_edge_checks`)
+    and ``check_grad_sync``'s problem (:func:`grad_sync_problem_check`).  Returns their records, K7's forward
     and backward records, and the main path's calls and CUDA launches."""
     import torch
 
@@ -4573,9 +4748,14 @@ def train_run(device: str = "cuda", reduced_config: bool = False,
     cuda = {k: CUDA_LAUNCHES[k] for k in launcher["k7"]}
     free_card(on_card)
     oracle = oracle_part(model, params,
-                         {k: v[:1] for k, v in batch.items()}, on_card)
+                         {k: v[:1] for k, v in batch.items()}, on_card,
+                         sizes["batch"])
+    labels = label_check(model, params, {k: v[:1] for k, v in batch.items()},
+                         on_card)
     oracle["kernels"][BWD]["edge_max_abs_err"] = bwd_edge_checks(
         device, torch.Generator().manual_seed(TRAIN_SEED))
+    oracle["kernels"]["flash_attention_bh"]["f32_edge_max_err"] = \
+        fwd_edge_checks(device, torch.Generator().manual_seed(TRAIN_SEED))
     del params, model, batch
     free_card(on_card)
     problem = grad_sync_problem_check(device)
@@ -4583,6 +4763,7 @@ def train_run(device: str = "cuda", reduced_config: bool = False,
     log(f"train phase: K7 calls on the main path (the launcher's runs and "
         f"the DP steps) {launches}, CUDA launches {cuda}; {seconds:.1f} s")
     return dict(launcher=launcher, oracle=oracle, dp=dp, problem=problem,
+                labels=labels,
                 kernels=oracle["kernels"], launches=launches,
                 cuda_launches=cuda, seconds=seconds)
 
@@ -5530,7 +5711,10 @@ def main() -> int:
             extra["train_cuda_launches"] = train["cuda_launches"][name]
             extra["train"] = {part: {k: tk[part][k]
                                      for k in timing + ("slept_ms",)}
-                              for part in ("train", "train_bf16")}
+                              for part in ("train", "train_bf16",
+                                           "train_launcher")}
+            extra["f32_source"] = "src/repro_torch/csrc/attn_fwd_f32.cuh"
+            extra["f32_edge_max_err"] = tk["f32_edge_max_err"]
         records.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=sum(p["launches"].get(name, 0) for p in paths),
@@ -5549,7 +5733,8 @@ def main() -> int:
         cuda_launches=train["cuda_launches"][BWD],
         max_abs_err=rec["max_abs_err"],
         **{k: rec[k] for k in timing + ("slept_ms",)},
-        bf16={k: rec["bf16"][k] for k in timing + ("slept_ms",)}))
+        bf16={k: rec["bf16"][k] for k in timing + ("slept_ms",)},
+        launcher={k: rec["launcher"][k] for k in timing + ("slept_ms",)}))
     print(json.dumps({"kernels": records}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

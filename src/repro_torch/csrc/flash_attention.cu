@@ -28,16 +28,17 @@
 // warp tiles (tile_mma.cuh), in bf16 on the tensor cores with exact
 // products; the online softmax stays in registers in fp32; P V takes P
 // from the score registers, split into two bf16 halves, so P keeps its
-// fp32 value to about 2^-17 as in the reference, where P is fp32.  In
-// float32, the oracle replay's type, the same skeleton runs fp32 FMAs.
-// Key tiles are 64 keys in bf16 and 32 in float32; shared memory is two
-// stages of K and V, [keys][D + 16 bytes] each (Q is staged over the
-// second): 102,400 bytes at (bf16, D 192), two blocks an SM; 61,440 at
-// (bf16, D 112), three.  Given an lse pointer (training; null when
-// serving) the epilogue also writes each row's log-sum-exp of the scaled
-// scores, m + log l in natural units, fp32 [BH, Tq], +inf for a row that
-// sees no key, so that the backward (flash_attention_bwd.cu) recomputes P
-// as exp(S scale - lse) without a second pass over the keys.
+// fp32 value to about 2^-17 as in the reference, where P is fp32.  Key
+// tiles are 64 keys; shared memory is two stages of K and V,
+// [keys][D + 16 bytes] each (Q is staged over the second): 102,400 bytes
+// at D 192, two blocks an SM; 61,440 at D 112, three.  In float32, the
+// oracle replay's and the training path's type, attn_fwd_f32.cuh's
+// register-blocked fp32 FMAs on the CUDA cores run instead (32 rows a
+// block, 64 or 32 keys a step).  Given an lse pointer (training; null
+// when serving) the epilogue also writes each row's log-sum-exp of the
+// scaled scores, m + log l in natural units, fp32 [BH, Tq], +inf for a
+// row that sees no key, so that the backward (flash_attention_bwd.cu)
+// recomputes P as exp(S scale - lse) without a second pass over the keys.
 //
 // Decode (Tq = 1), split over keys.  One query row per (batch, head) reads
 // its visible K and V once: bound by bytes (DeepSeek's step, 64 rows over
@@ -55,8 +56,11 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include "kernel_attrs.cuh"
 
+#include <type_traits>
+
+#include "attn_fwd_f32.cuh"
+#include "kernel_attrs.cuh"
 #include "tile_mma.cuh"
 
 namespace {
@@ -81,11 +85,13 @@ __device__ __forceinline__ void store1(float a, __nv_bfloat16* o) {
 }
 
 // ----------------------------------------------------------------- prefill
+// bf16 only: float32 runs attn_fwd_f32.cuh
 template <typename E, int D>
 struct Prefill {
+  static_assert(sizeof(E) == 2, "float32 runs attn_fwd::f32");
   static constexpr int kPad = 16 / (int)sizeof(E);   // 16 bytes a row
   static constexpr int kLd = D + kPad;               // staged row stride
-  static constexpr int kKeys = sizeof(E) == 2 ? 64 : 32;
+  static constexpr int kKeys = 64;
   static constexpr int kTile = kKeys * kLd;          // elements of a tile
   static constexpr int kBytes = 4 * kTile * (int)sizeof(E);
   static_assert(2 * kKeys >= kRows, "Q is staged over the second stage");
@@ -525,27 +531,46 @@ __global__ void __launch_bounds__(kThreads) attn_decode_combine_kernel(
 }
 
 // ----------------------------------------------------------------- launch
+// Allow a kernel the dynamic shared memory of its launch, once.
+template <typename K>
+int allow_smem(K kernel, int bytes, bool* done) {
+  if (*done) return 0;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return (int)err;
+  }
+  *done = true;
+  return 0;
+}
+
 template <typename E, int D>
 int launch_prefill(const void* q, const void* k, const void* v, void* o,
                    float* lse, int BH, int Tq, int Tk, float scale, int causal,
                    int window, int kv_len, int q_offset, cudaStream_t stream) {
-  constexpr int bytes = Prefill<E, D>::kBytes;
-  auto kernel = attn_prefill_kernel<E, D>;
   static bool attr_set = false;
-  if (!attr_set) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err != cudaSuccess) {
-      cudaGetLastError();
-      return (int)err;
-    }
-    attr_set = true;
+  if constexpr (std::is_same<E, float>::value) {
+    namespace f = attn_fwd::f32;
+    constexpr int bytes = f::Tiles<D>::kBytes;
+    const int err = allow_smem(f::attn_prefill_f32_kernel<D>, bytes,
+                               &attr_set);
+    if (err) return err;
+    dim3 grid(BH, (Tq + f::kRows - 1) / f::kRows);
+    f::attn_prefill_f32_kernel<D><<<grid, f::kThreads, bytes, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<float*>(o), lse, Tq, Tk,
+        scale, causal, window, kv_len, q_offset);
+  } else {
+    constexpr int bytes = Prefill<E, D>::kBytes;
+    const int err = allow_smem(attn_prefill_kernel<E, D>, bytes, &attr_set);
+    if (err) return err;
+    dim3 grid(BH, (Tq + kRows - 1) / kRows);
+    attn_prefill_kernel<E, D><<<grid, kThreads, bytes, stream>>>(
+        static_cast<const E*>(q), static_cast<const E*>(k),
+        static_cast<const E*>(v), static_cast<E*>(o), lse, Tq, Tk, scale,
+        causal, window, kv_len, q_offset);
   }
-  dim3 grid(BH, (Tq + kRows - 1) / kRows);
-  kernel<<<grid, kThreads, bytes, stream>>>(
-      static_cast<const E*>(q), static_cast<const E*>(k),
-      static_cast<const E*>(v), static_cast<E*>(o), lse, Tq, Tk, scale,
-      causal, window, kv_len, q_offset);
   return (int)cudaGetLastError();
 }
 
@@ -602,18 +627,26 @@ int decode(const void* q, const void* k, const void* v, void* o,
 
 // ------------------------------------------------- attributes (verify)
 
-// Every kernel of this source at its launch: kThreads a block; the
-// prefill with Prefill<E, D>::kBytes of dynamic shared memory.
-#define REPRO_ATTN_ENTRIES(E, EN, DIM)                                      \
-  {"attn_prefill_kernel<" EN "," #DIM ">",                                  \
-   (const void*)attn_prefill_kernel<E, DIM>, kThreads,                      \
-   Prefill<E, DIM>::kBytes, 1},                                             \
+// Every kernel of this source at its launch: kThreads a block; the bf16
+// prefill with Prefill<E, D>::kBytes of dynamic shared memory, the float32
+// one (attn_fwd::f32) with its Tiles<D>::kBytes and the blocks an SM its
+// __launch_bounds__ promise.
+#define REPRO_ATTN_DECODE(E, EN, DIM)                                       \
   {"attn_decode_split_kernel<" EN "," #DIM ">",                             \
    (const void*)attn_decode_split_kernel<E, DIM>, kThreads, 0, 1},          \
   {"attn_decode_combine_kernel<" EN "," #DIM ">",                           \
    (const void*)attn_decode_combine_kernel<E, DIM>, kThreads, 0, 1},
-#define REPRO_ATTN_BF16(DIM) REPRO_ATTN_ENTRIES(__nv_bfloat16, "bf16", DIM)
-#define REPRO_ATTN_F32(DIM) REPRO_ATTN_ENTRIES(float, "f32", DIM)
+#define REPRO_ATTN_BF16(DIM)                                                \
+  {"attn_prefill_kernel<bf16," #DIM ">",                                    \
+   (const void*)attn_prefill_kernel<__nv_bfloat16, DIM>, kThreads,          \
+   Prefill<__nv_bfloat16, DIM>::kBytes, 1},                                 \
+  REPRO_ATTN_DECODE(__nv_bfloat16, "bf16", DIM)
+#define REPRO_ATTN_F32(DIM)                                                 \
+  {"attn_prefill_f32_kernel<" #DIM ">",                                     \
+   (const void*)attn_fwd::f32::attn_prefill_f32_kernel<DIM>,                \
+   attn_fwd::f32::kThreads, attn_fwd::f32::Tiles<DIM>::kBytes,              \
+   attn_fwd::f32::Tiles<DIM>::kBlocks},                                     \
+  REPRO_ATTN_DECODE(float, "f32", DIM)
 
 const repro_attrs::KernelEntry* kernel_table(int* n) {
   static const repro_attrs::KernelEntry table[] = {
@@ -624,7 +657,7 @@ const repro_attrs::KernelEntry* kernel_table(int* n) {
 
 #undef REPRO_ATTN_F32
 #undef REPRO_ATTN_BF16
-#undef REPRO_ATTN_ENTRIES
+#undef REPRO_ATTN_DECODE
 
 }  // namespace
 

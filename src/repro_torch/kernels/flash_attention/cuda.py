@@ -10,12 +10,14 @@ the launch reports an error, and counts the call in
 :data:`repro_torch.kernels.LAUNCHES`.  A call with one query row runs the
 split-key decode, two CUDA launches (the splits' partials, then their
 combine); any other runs the prefill kernel, which on request also writes
-the rows' log-sum-exp for the backward.  The backward
-(``csrc/flash_attention_bwd.cu``) is three CUDA launches a call and counts
-under ``flash_attention_bh_bwd``; its tiles are mirrored here
-(``BWD_ROWS``, ``BWD_STEP``) with the steps a block walks
-(:func:`bwd_query_steps`, :func:`bwd_key_steps`).  Shapes are validated by
-:mod:`repro_torch.kernels.flash_attention.ops`.
+the rows' log-sum-exp for the backward; its tiles (bf16 on the tensor
+cores, float32 in ``csrc/attn_fwd_f32.cuh``) are mirrored here
+(``FWD_ROWS``, ``FWD_STEP``) with the key steps a block walks
+(:func:`fwd_key_steps`).  The backward (``csrc/flash_attention_bwd.cu``)
+is three CUDA launches a call and counts under ``flash_attention_bh_bwd``;
+its tiles are mirrored too (``BWD_ROWS``, ``BWD_STEP``) with the steps a
+block walks (:func:`bwd_query_steps`, :func:`bwd_key_steps`).  Shapes are
+validated by :mod:`repro_torch.kernels.flash_attention.ops`.
 """
 from __future__ import annotations
 
@@ -38,8 +40,12 @@ BWD_LIBRARY = CudaLibrary("flash_attention_bwd.cu", {
     "repro_flash_attention_bh_bwd_f32": _BWD,
 })
 _SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
-ROWS_PER_BLOCK = 64          # kRows in the source
 HEAD_DIMS = (64, 112, 128, 192, 256)    # the head dims the source is built for
+# The prefill's tiles by dtype: query rows a block (kRows, f32::kRows) and
+# keys a step by head dim (Prefill<E, D>::kKeys, f32::Tiles<D>::kStep)
+FWD_ROWS = {torch.bfloat16: 64, torch.float32: 32}
+FWD_STEP = {torch.bfloat16: {d: 64 for d in HEAD_DIMS},
+            torch.float32: {d: 64 if d == 64 else 32 for d in HEAD_DIMS}}
 BWD_HEAD_DIMS = (64, 128)    # the head dims the backward is built for
 # The backward's tiles by dtype: rows a block owns (keys in dK / dV,
 # queries in dQ; kRows, f32::kOwn) and rows of the other side a step by
@@ -47,6 +53,21 @@ BWD_HEAD_DIMS = (64, 128)    # the head dims the backward is built for
 BWD_ROWS = {torch.bfloat16: 64, torch.float32: 32}
 BWD_STEP = {torch.bfloat16: {64: 32, 128: 32},
             torch.float32: {64: 64, 128: 32}}
+
+
+def fwd_key_steps(q0: int, rows: int, step: int, Tq: int, Tk: int,
+                  causal: bool, window: int, kv_len: int,
+                  q_offset: int) -> range:
+    """The key steps a prefill block owning query rows [q0, q0 + rows)
+    walks, ``step`` keys each, as the kernels compute them: from the first
+    row's window to the last row's causal bound, below kv_len."""
+    q_last = min(q0 + rows, Tq) - 1
+    k_end = min(kv_len, Tk)
+    if causal:
+        k_end = min(k_end, q_offset + q_last + 1)
+    k_begin = max(0, q_offset + q0 - window + 1) if window > 0 else 0
+    first = k_begin // step
+    return range(first, -(-k_end // step) if k_end > k_begin else first)
 
 
 def bwd_query_steps(k0: int, rows: int, step: int, Tq: int, Tk: int,
@@ -73,8 +94,8 @@ def bwd_key_steps(q0: int, rows: int, step: int, Tq: int, Tk: int,
     return range(first, -(-k_end // step) if k_end > k_begin else first)
 
 
-def _check_operands(name: str, dims, q: torch.Tensor,
-                    rows_per_block: int = ROWS_PER_BLOCK, **kv: torch.Tensor):
+def _check_operands(name: str, dims, q: torch.Tensor, rows_per_block: int,
+                    **kv: torch.Tensor):
     """One CUDA device, contiguity, bf16 or f32 throughout, a built head
     dim, 16-byte aligned rows, a grid of ``rows_per_block`` rows a block
     within its limit; the device."""
@@ -100,7 +121,9 @@ def flash_attention_bh(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        q_offset: int, lse: bool = False):
     """K7 on the card: q [BH, Tq, d], k / v [BH, Tk, d] -> [BH, Tq, d];
     with ``lse`` (a call of Tq > 1) -> (out, lse [BH, Tq] float32)."""
-    device = _check_operands("flash_attention_bh", HEAD_DIMS, q, k=k, v=v)
+    device = _check_operands("flash_attention_bh", HEAD_DIMS, q,
+                             rows_per_block=FWD_ROWS.get(q.dtype, 1),
+                             k=k, v=v)
     BH, Tq, d = q.shape
     Tk = k.shape[1]
     out = torch.empty_like(q)

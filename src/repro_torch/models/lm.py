@@ -273,13 +273,18 @@ class Model:
     @staticmethod
     def _xent_block(xc: torch.Tensor, head: torch.Tensor, lc: torch.Tensor,
                     mc: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """One sequence block's (ce sum, z sum) over [B, blk] positions."""
+        """One sequence block's (ce sum, z sum) over [B, blk] positions.
+        A label outside [0, V) picks no logit (ll = 0), as ``repro``'s
+        one-hot sum does."""
         logits = xc @ head.to(xc.dtype)                  # [B, blk, V]
         m = torch.amax(logits, dim=-1, keepdim=True).detach().to(
             torch.float32)
         lf = logits.to(torch.float32)
         lse = torch.log(torch.sum(torch.exp(lf - m), dim=-1)) + m[..., 0]
-        ll = torch.gather(lf, -1, lc.long()[..., None])[..., 0]
+        V = lf.shape[-1]
+        lab = lc.long()
+        ll = torch.gather(lf, -1, lab.clamp(0, V - 1)[..., None])[..., 0]
+        ll = torch.where((lab >= 0) & (lab < V), ll, torch.zeros_like(ll))
         return torch.sum((lse - ll) * mc), torch.sum(torch.square(lse) * mc)
 
     def _xent(self, x: torch.Tensor, head: torch.Tensor,

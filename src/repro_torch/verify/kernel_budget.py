@@ -43,7 +43,9 @@ import re
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
+import torch
 
+from ..kernels.flash_attention.cuda import FWD_ROWS, FWD_STEP
 from ..kernels.spmv_ell import DEFAULT_BLOCK_ROWS
 from ..sparse.device import (
     _IDX_BYTES,
@@ -166,15 +168,24 @@ def verify_kernel_budget(
 
 
 def flash_prefill_smem_bytes(elem_bytes: int, head_dim: int) -> int:
-    """Dynamic shared memory K7's prefill kernel needs at ``head_dim``:
-    four staged key / value tiles (two stages of K and V) of ``keys`` rows
-    of ``head_dim`` elements plus 16 bytes of row padding; 64 keys a tile
-    in bf16, 32 in float32 (``csrc/flash_attention.cu``, ``Prefill``)."""
-    keys = 64 if elem_bytes == 2 else 32
-    return 4 * keys * (head_dim + 16 // elem_bytes) * elem_bytes
+    """Dynamic shared memory K7's prefill kernel needs at ``head_dim``.
+    bf16 (``csrc/flash_attention.cu``, ``Prefill``): four staged key /
+    value tiles (two stages of K and V) of 64 rows of ``head_dim``
+    elements plus 16 bytes of row padding.  float32
+    (``csrc/attn_fwd_f32.cuh``, ``Tiles``): Q's 32 rows, K and V of one
+    step of 64 keys at head dim 64 and 32 above, each row ``head_dim + 4``
+    floats, and P, 32 rows of step + 8 floats.  The rows and steps are
+    ``kernels/flash_attention/cuda.py``'s mirrors (``FWD_ROWS``,
+    ``FWD_STEP``)."""
+    dtype = torch.bfloat16 if elem_bytes == 2 else torch.float32
+    rows, step = FWD_ROWS[dtype], FWD_STEP[dtype][head_dim]
+    if elem_bytes == 2:
+        return 4 * step * (head_dim + 8) * 2
+    return 4 * ((rows + 2 * step) * (head_dim + 4) + rows * (step + 8))
 
 
-_K7_PREFILL = re.compile(r"attn_prefill_kernel<(bf16|f32),(\d+)>")
+_K7_PREFILL = re.compile(
+    r"attn_prefill_kernel<bf16,(\d+)>|attn_prefill_f32_kernel<(\d+)>")
 
 
 def check_kernel_attributes(attrs: Sequence[Dict],
@@ -211,8 +222,8 @@ def check_kernel_attributes(attrs: Sequence[Dict],
                   blocks=a["blocks_per_sm"], promised=promised)
         m = _K7_PREFILL.fullmatch(name)
         if m:
-            want = flash_prefill_smem_bytes(2 if m[1] == "bf16" else 4,
-                                            int(m[2]))
+            want = (flash_prefill_smem_bytes(2, int(m[1])) if m[1]
+                    else flash_prefill_smem_bytes(4, int(m[2])))
             if a["dyn_smem"] != want:
                 _fail("K7 requests other dynamic shared memory than its "
                       "tiles need", kernel=name, dyn_smem=a["dyn_smem"],

@@ -386,9 +386,11 @@ def test_chip_smoke_train_phase_runs_on_cpu(tmp_path):
     """The train phase at the reduced ``qwen2-0.5b`` (vocab 128): the
     launcher's loss falls and its resumed run is bitwise the uninterrupted
     one (checkpoints under ``tmp_path``, removed after); the lane-step
-    oracle passes and refuses the planted backward fault; every DP variant
+    oracle passes and refuses the planted backward fault; a lane-step with
+    labels -1 and V gives a finite loss; every DP variant
     passes its sync check and the planted sync fault is refused;
-    ``check_grad_sync``'s problem within 1e-12; K7's edge calls pass; no
+    ``check_grad_sync``'s problem within 1e-12; K7's edge calls (backward
+    and float32 forward) pass; the launcher's call is timed; no
     launch off the card.  The backward's call site is the one the
     ``autograd.Function`` calls."""
     from repro_torch.kernels.flash_attention import flash_attention_bh
@@ -408,6 +410,10 @@ def test_chip_smoke_train_phase_runs_on_cpu(tmp_path):
     assert kernels[chip_smoke.BWD]["bound_ms"] > 0.0
     assert kernels[chip_smoke.BWD]["bf16"]["bound_ms"] > 0.0
     assert kernels["flash_attention_bh"]["train"]["bound_ms"] > 0.0
+    assert kernels["flash_attention_bh"]["train_launcher"]["bound_ms"] > 0.0
+    assert kernels[chip_smoke.BWD]["launcher"]["bound_ms"] > 0.0
+    assert kernels["flash_attention_bh"]["f32_edge_max_err"] == 0.0
+    assert np.isfinite(res["labels"]["loss"])
     variants = res["dp"]["variants"]
     assert set(variants) == set(chip_smoke.DP_METHODS)
     for method in chip_smoke.DP_METHODS[1:]:

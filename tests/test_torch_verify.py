@@ -349,11 +349,18 @@ def attrs(**kw):
 def test_kernel_attributes_accept_and_refuse():
     k7 = pv.flash_prefill_smem_bytes(2, 192)
     assert k7 == 4 * 64 * (192 + 8) * 2
+    # float32 (attn_fwd_f32.cuh): Q's 32 rows, K and V of a 64-key step at
+    # d 64, rows of d + 4 floats, and P's 32 rows of 64 + 8
+    k7f = pv.flash_prefill_smem_bytes(4, 64)
+    assert k7f == 4 * ((32 + 2 * 64) * (64 + 4) + 32 * (64 + 8))
     good = [attrs(), attrs(name="attn_prefill_kernel<bf16,192>",
                            source="flash_attention.cu", dyn_smem=k7,
-                           max_dyn_smem=k7, blocks_per_sm=2, min_blocks=1)]
+                           max_dyn_smem=k7, blocks_per_sm=2, min_blocks=1),
+            attrs(name="attn_prefill_f32_kernel<64>",
+                  source="flash_attention.cu", dyn_smem=k7f,
+                  max_dyn_smem=k7f, blocks_per_sm=4, min_blocks=4)]
     assert pv.check_kernel_attributes(good, LIMITS) == {
-        "kernels": 2, "k7_head_dims": 1}
+        "kernels": 3, "k7_head_dims": 2}
     faults = {
         "register file": attrs(num_regs=255, threads=512,
                                max_threads_per_block=512),
@@ -364,6 +371,7 @@ def test_kernel_attributes_accept_and_refuse():
         "larger than": attrs(threads=256),
         "dynamic shared memory than the kernel": attrs(max_dyn_smem=1024),
         "tiles": dict(good[1], dyn_smem=k7 + 16, max_dyn_smem=k7 + 16),
+        "other dynamic shared memory": dict(good[2], dyn_smem=k7f - 16),
     }
     for match, bad in faults.items():
         with pytest.raises(pv.VerifyError, match=match) as err:
